@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (phoonnx_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--profile]
 
 Run from the root of a checkout on a machine with an NVIDIA H100 (or
 another sm_90a card) and the CUDA toolkit. The script
@@ -10,18 +10,27 @@ another sm_90a card) and the CUDA toolkit. The script
    CUDA kernel of the port from ``phoonnx_tpu_torch/csrc`` (one ``nvcc``
    per source, all started together);
 2. holds each kernel against its plain PyTorch version on the card at the
-   medium preset's shapes and times both (median of CUDA-event timings
-   after warm-up, over varied inputs), beside the kernel's bound: the
-   larger of its float32 operations over the card's SIMT peak and its
-   bytes over the memory rate;
-3. writes a medium voice (random weights from ``--seed``) with the port's
-   ONNX writer, loads it with ``TTSVoice.load`` on the default device and
-   answers three single requests and one ragged batch of four, checking
-   finite audio of ``frames * 256`` samples, that the batch equals the
-   single decodes on each utterance's span, that every kernel was
-   launched on that path, and that the path agrees with the plain
-   PyTorch versions run on the host's CPU;
-4. prints one ``{"kernels": [...]}`` line and, last, one
+   shapes of its path (medium synthesis for A, B and C; a medium training
+   batch of 16 for D) and times both (median of CUDA-event timings after
+   warm-up, over varied inputs), beside the kernel's bound: the larger of
+   its float32 operations over the card's SIMT peak and its bytes over
+   the memory rate;
+3. serving: writes a medium voice (random weights from ``--seed``) with
+   the port's ONNX writer, loads it with ``TTSVoice.load`` on the default
+   device and answers three single requests and one ragged batch of four,
+   checking finite audio of ``frames * 256`` samples, that the batch
+   equals the single decodes on each utterance's span, that kernels A, B
+   and C were launched on that path, and that the path agrees with the
+   plain PyTorch versions run on the host's CPU;
+4. training: writes a synthetic LJSpeech-style dataset (per-phoneme tones,
+   1.5 to 8 s, spectrograms from the port's STFT) and runs
+   ``run_training(quality="medium", batch_size=16, max_epochs=1)`` on the
+   card, printing each step's time, losses and kernel D time, checking
+   finite losses, changed parameters, that kernel D was launched and A, B,
+   C were not, and that the checkpoint restores to equal tensors; then
+   the micro overfit recipe of the JAX package's tests (250 steps on two
+   learnable utterances) held to that test's margins;
+5. prints one ``{"kernels": [...]}`` line and, last, one
    ``{"ok": true, "device": {...}}`` line.
 
 It exits non-zero, with no result line, when there is no CUDA device, when
@@ -30,11 +39,15 @@ the port is not beside it, or when any check fails.
 
 import argparse
 import json
+import math
+import shutil
 import statistics
 import subprocess
 import sys
 import time
 from pathlib import Path
+
+import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 
@@ -54,6 +67,12 @@ PATH_TOL = 1e-3
 
 NO_LIBRARY = ("no single PyTorch call computes this function (it is a chain "
               "of convs, products and masks)")
+NO_LIBRARY_MAS = ("no single PyTorch call computes this function (a max-plus "
+                  "dynamic program over the frames and its backtrack)")
+
+# the medium training shape of kernel D: batch 16, spec frames padded to a
+# multiple of 64, phonemes to a multiple of 32 (train/dataset.py)
+MAS_SHAPE = (16, 832, 320)
 
 
 def fail(msg: str) -> None:
@@ -442,28 +461,26 @@ def path_vs_plain(torch, voice, seed):
     check(wave_err <= PATH_TOL, f"waveform differs by {wave_err:.3e}")
 
 
-def profile_request(torch, voice, seed, top=20):
-    """Device time by kernel over one ~250-id request (torch.profiler),
-    and the device's idle share of the request's wall time."""
+def device_profile(torch, fn, label, top=20):
+    """Run fn once under torch.profiler; print its wall time, the device's
+    busy time and idle share, and the device time of the top kernels.
+    Returns (wall_us, busy_us, rows of (device_us, count, name))."""
     from torch.profiler import ProfilerActivity, profile
 
-    from phoonnx_tpu_torch import SynthesisConfig
-
-    text = text_of(100, 3)
-    cfg = SynthesisConfig(seed=seed, normalize_audio=False)
-    list(voice.synthesize(text, cfg))  # warm
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        list(voice.synthesize(text, cfg))
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     rows = []
     for evt in prof.key_averages():
-        # device-side events only: an aten op's entry repeats the device
-        # time of the kernels it launched
-        if not str(evt.device_type).endswith("CUDA"):
+        # device-side kernels only: an aten op's entry, or a user
+        # annotation's range on the device (Optimizer.step), repeats the
+        # device time of the kernels inside it
+        if (not str(evt.device_type).endswith("CUDA")
+                or getattr(evt, "is_user_annotation", False)):
             continue
         dev_us = getattr(evt, "self_device_time_total", None)
         if dev_us is None:
@@ -472,15 +489,350 @@ def profile_request(torch, voice, seed, top=20):
             rows.append((dev_us, evt.count, evt.key))
     rows.sort(reverse=True)
     busy_us = sum(r[0] for r in rows)
-    n_ids = len(voice.phonemes_to_ids(voice.phonemize(text)[0]))
-    print(f"profile: one request of {n_ids} ids: wall {wall_us / 1e3:.3f} "
-          f"ms, device busy {busy_us / 1e3:.3f} ms, idle share "
-          f"{1 - busy_us / wall_us:.3f}", flush=True)
+    print(f"profile: {label}: wall {wall_us / 1e3:.3f} ms, device busy "
+          f"{busy_us / 1e3:.3f} ms, idle share {1 - busy_us / wall_us:.3f}",
+          flush=True)
     if not rows:
         print("profile: the profiler recorded no device time", flush=True)
     for dev_us, count, key in rows[:top]:
         print(f"profile: {dev_us / 1e3:9.4f} ms  x{count:<5d} {key[:110]}",
               flush=True)
+    return wall_us, busy_us, rows
+
+
+def profile_request(torch, voice, seed):
+    """Device time by kernel over one ~250-id request, and the device's
+    idle share of the request's wall time."""
+    from phoonnx_tpu_torch import SynthesisConfig
+
+    text = text_of(100, 3)
+    cfg = SynthesisConfig(seed=seed, normalize_audio=False)
+    list(voice.synthesize(text, cfg))  # warm
+    n_ids = len(voice.phonemes_to_ids(voice.phonemize(text)[0]))
+    device_profile(torch, lambda: list(voice.synthesize(text, cfg)),
+                   f"one request of {n_ids} ids")
+
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+
+def tone_audio(ids, frames_per_id: int, hop: int, sr: int) -> np.ndarray:
+    """Each phoneme id a fixed two-harmonic tone of ``frames_per_id``
+    frames, concatenated (the recipe of tests/test_overfit_tiny.py:59)."""
+    n = len(ids) * frames_per_id * hop
+    t = np.arange(n) / sr
+    audio = np.zeros(n, np.float32)
+    for k, pid in enumerate(ids):
+        s, e = k * frames_per_id * hop, (k + 1) * frames_per_id * hop
+        f0 = 100.0 + 40.0 * pid
+        audio[s:e] = (0.35 * np.sin(2 * np.pi * f0 * t[s:e])
+                      + 0.15 * np.sin(2 * np.pi * 2 * f0 * t[s:e]))
+    return audio
+
+
+def write_dataset(torch, out_dir: Path, hp, n_utts: int, seed: int,
+                  seconds=(1.5, 8.0), n_symbols: int = 40) -> Path:
+    """A synthetic LJSpeech-style dataset dir: ``config.json``,
+    ``dataset.jsonl`` and per-utterance ``.npy`` audio and channel-last
+    spectrograms (the port's STFT), utterances of per-phoneme tones with
+    lengths drawn from ``seconds``."""
+    from phoonnx_tpu_torch.ops import stft
+
+    rng = np.random.default_rng(seed)
+    if out_dir.exists():
+        shutil.rmtree(out_dir)
+    (out_dir / "cache").mkdir(parents=True)
+    config = {"num_symbols": n_symbols, "num_speakers": 1,
+              "audio": {"sample_rate": hp.sample_rate}}
+    (out_dir / "config.json").write_text(json.dumps(config),
+                                         encoding="utf-8")
+    lines = []
+    for i in range(n_utts):
+        frames = int(rng.uniform(*seconds) * hp.sample_rate / hp.hop_length)
+        frames_per_id = int(rng.integers(4, 9))
+        ids = rng.integers(1, n_symbols, max(2, frames // frames_per_id))
+        audio = tone_audio(ids, frames_per_id, hp.hop_length, hp.sample_rate)
+        spec = stft.spectrogram(torch.from_numpy(audio)[None],
+                                hp.filter_length, hp.hop_length,
+                                hp.win_length)[0].numpy()
+        audio_path = out_dir / "cache" / f"{i}.audio.npy"
+        spec_path = out_dir / "cache" / f"{i}.spec.npy"
+        np.save(audio_path, audio)
+        np.save(spec_path, spec)
+        lines.append(json.dumps({"phoneme_ids": [int(x) for x in ids],
+                                 "audio_norm_path": str(audio_path),
+                                 "audio_spec_path": str(spec_path)}))
+    (out_dir / "dataset.jsonl").write_text("\n".join(lines) + "\n",
+                                           encoding="utf-8")
+    return out_dir
+
+
+def mas_inputs(torch, dev, seed, variants=3):
+    """Kernel D's inputs at the medium training shape: ragged lengths,
+    one element with x_len > y_len, one with integer scores (ties)."""
+    from phoonnx_tpu_torch.ops import mas
+
+    b, t_y, t_x = MAS_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    mask = torch.zeros(MAS_SHAPE, device=dev)
+    for i in range(b):
+        y, x = t_y - 37 * i, t_x - 17 * i
+        if i == 3:
+            y, x = 200, t_x  # more phonemes than frames
+        mask[i, :y, :x] = 1
+    inputs = []
+    for _ in range(variants):
+        neg_cent = torch.randn(MAS_SHAPE, device=dev, generator=gen) * 3
+        neg_cent[1] = torch.round(neg_cent[1])
+        inputs.append(mas.lengths_and_value(neg_cent, mask))
+    return inputs
+
+
+def mas_phase(torch, dev, seed):
+    """Kernel D against its plain version, bit for bit, at [16, 832, 320]."""
+    from phoonnx_tpu_torch.ops import mas
+
+    inputs = mas_inputs(torch, dev, seed)
+    for value, y_lens, x_lens in inputs:
+        got = mas.launch(value, y_lens, x_lens)
+        want = mas.maximum_path_plain(value, y_lens, x_lens)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), "kernel D differs from its plain "
+              f"version in {int((got != want).sum())} cells")
+        rows = got.sum(dim=2)
+        check(bool(((rows == 1) | (rows == 0)).all()),
+              "kernel D marked more than one phoneme in a frame")
+    k_ms = median_ms(torch, mas.launch, inputs)
+    p_ms = median_ms(torch, mas.maximum_path_plain, inputs)
+    b, t_y, t_x = MAS_SHAPE
+    flops = 2.0 * b * t_y * t_x  # an add and a max per cell, full grid
+    nbytes = 2.0 * b * t_y * t_x * 4 + 2 * b * 4  # scores in, path out
+    b_ms, b_by = bound(flops, nbytes)
+    print(f"kernel D B={b} T_y={t_y} T_x={t_x}: torch.equal to plain, "
+          f"max_abs_err=0 kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
+          f"bound_ms={b_ms:.5f} ({b_by}) flops={flops:.4e} "
+          f"bytes={nbytes:.4e}", flush=True)
+    return {"max_abs_err": 0.0, "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
+def params_of(state):
+    from phoonnx_tpu_torch.train import step
+
+    return step.leaves(state.params_g) + step.leaves(state.params_d)
+
+
+def training_phase(torch, root: Path, seed: int, profile: bool):
+    """The port's training path as a user drives it: run_training on a
+    synthetic dataset at the medium preset, batch 16, one epoch."""
+    from phoonnx_tpu_torch.models.vits import (fused_encoder, fused_flow,
+                                               fused_stage)
+    from phoonnx_tpu_torch.models.vits.model import VitsHParams
+    from phoonnx_tpu_torch.ops import mas
+    from phoonnx_tpu_torch.train import checkpoint, step
+    from phoonnx_tpu_torch.train.trainer import run_training
+
+    hp = VitsHParams.preset("medium")
+    t0 = time.perf_counter()
+    data = write_dataset(torch, root / "build" / "chip_smoke" / "dataset",
+                         hp, 40, seed)
+    print(f"train: wrote 40 utterances in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    # kernel D's time inside each step, from CUDA events around its launch
+    events = []
+    launch = mas.launch
+
+    def timed_launch(*args):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = launch(*args)
+        end.record()
+        events.append((start, end, tuple(args[0].shape)))
+        return out
+
+    mas.launch = timed_launch
+    others = {"A": fused_encoder, "B": fused_flow, "C": fused_stage}
+    try:
+        for mod in (mas, *others.values()):
+            mod.launches = 0
+        t0 = time.perf_counter()
+        run = run_training(str(data), quality="medium", batch_size=16,
+                           max_epochs=1, seed=seed, log_every=1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = mas.launches
+        other_launches = {k: m.launches for k, m in others.items()}
+    finally:
+        mas.launch = launch
+    print(f"train: run_training wall {wall:.3f} s, {len(run.steps)} steps, "
+          f"kernel D launches {launches}, kernels A/B/C launches "
+          f"{other_launches}", flush=True)
+    check(launches > 0, "kernel D was not launched on the training path")
+    check(not any(other_launches.values()),
+          "the training path reached an inference kernel")
+    check(len(run.steps) > 0, "no training step ran")
+    check(len(events) == launches, "kernel D launches and timings disagree")
+
+    mas_ms = [s.elapsed_time(e) for s, e, _ in events]
+    for record, ms, (_, _, shape) in zip(run.steps, mas_ms, events):
+        losses = " ".join(f"{k}={record[k]:.4f}" for k in step.METRICS)
+        print(f"train: step {record['step']} ms={record['ms']:.3f} {losses} "
+              f"kernel_D_ms={ms:.4f} mas_shape={list(shape)}", flush=True)
+        check(all(math.isfinite(record[k]) for k in step.METRICS),
+              f"non-finite loss at step {record['step']}")
+    step_ms = [r["ms"] for r in run.steps]
+    steady = step_ms[1:] or step_ms
+    d_steady = mas_ms[1:len(step_ms)] or mas_ms[:1]
+    print(f"train: step ms first={step_ms[0]:.3f} steady median="
+          f"{statistics.median(steady):.3f}; kernel D median "
+          f"{statistics.median(d_steady):.4f} ms = "
+          f"{statistics.median(d_steady) / statistics.median(steady):.5f} "
+          f"of a steady step; validation {run.val_losses}", flush=True)
+
+    # the parameters moved away from the seed's initialisation
+    cfg = step.TrainConfig()
+    init = step.init_train_state(run.hp, cfg,
+                                 torch.Generator().manual_seed(seed))
+    moved = sum(not torch.equal(a.detach().cpu(), b.detach())
+                for a, b in zip(params_of(run.state), params_of(init)))
+    total = len(params_of(init))
+    print(f"train: {moved} of {total} parameter tensors changed", flush=True)
+    check(moved > total // 2, f"only {moved} of {total} parameters changed")
+
+    # the checkpoint restores to equal tensors
+    check(run.checkpoint is not None and Path(run.checkpoint).exists(),
+          "no checkpoint written")
+    fresh = step.init_train_state(run.hp, cfg,
+                                  torch.Generator().manual_seed(seed + 1),
+                                  device=torch.device("cuda"))
+    checkpoint.restore(run.checkpoint, fresh)
+    check(fresh.step == run.state.step, "restored step differs")
+    for a, b in zip(params_of(run.state), params_of(fresh)):
+        check(torch.equal(a, b), "a restored parameter differs")
+    for opt_a, opt_b, tree_a, tree_b in (
+            (run.state.opt_g, fresh.opt_g, run.state.params_g,
+             fresh.params_g),
+            (run.state.opt_d, fresh.opt_d, run.state.params_d,
+             fresh.params_d)):
+        for a, b in zip(step.leaves(tree_a), step.leaves(tree_b)):
+            check(torch.equal(opt_a.state[a]["exp_avg_sq"],
+                              opt_b.state[b]["exp_avg_sq"]),
+                  "a restored optimizer moment differs")
+    print(f"train: checkpoint {Path(run.checkpoint).name} restores "
+          f"{total} parameter tensors and their moments equal", flush=True)
+
+    if profile:
+        profile_train_step(torch, run, data, seed)
+    return launches, {"step_ms": step_ms, "mas_ms": mas_ms}
+
+
+def profile_train_step(torch, run, data: Path, seed: int):
+    """One more medium training step under the profiler: the card's idle
+    share of the step and kernel D's share of its device time."""
+    from phoonnx_tpu_torch.train.dataset import BucketedLoader, load_dataset
+    from phoonnx_tpu_torch.train.step import (TrainConfig, batch_to_device,
+                                              train_step)
+    from phoonnx_tpu_torch.train.trainer import step_generator
+
+    hp = run.hp
+    utts = load_dataset([data / "dataset.jsonl"])
+    loader = BucketedLoader(utts, batch_size=16,
+                            segment_size_frames=hp.segment_size,
+                            hop_length=hp.hop_length, seed=seed,
+                            spec_channels=hp.spec_channels)
+    batch = batch_to_device(next(iter(loader.epoch(epoch_index=0))), "cuda")
+    cfg = TrainConfig()
+    dev = torch.device("cuda")
+
+    def one_step():
+        train_step(run.state, batch, hp, cfg,
+                   generator=step_generator(dev, seed, run.state.step))
+
+    one_step()  # warm at this shape
+    _, busy_us, rows = device_profile(
+        torch, one_step,
+        f"one medium training step, batch 16, spec {batch['spec'].shape[1]} "
+        f"frames, {batch['phoneme_ids'].shape[1]} phonemes")
+    d_us = sum(us for us, _, key in rows if "mas_kernel" in key)
+    print(f"profile: kernel D {d_us / 1e3:.4f} ms = "
+          f"{d_us / max(busy_us, 1e-9):.5f} of the step's device time",
+          flush=True)
+
+
+# the micro overfit recipe of tests/test_overfit_tiny.py, copied
+OVERFIT_STEPS = 250
+
+
+def learnable_batch(torch, hp, batch=2, t_x=12, t_y=48):
+    """Two deterministic, learnable utterances: each phoneme id a fixed
+    tone, the spectrogram the training STFT of that audio."""
+    from phoonnx_tpu_torch.ops import stft
+
+    rng = np.random.default_rng(3)
+    ids = rng.integers(1, hp.n_vocab, (batch, t_x))
+    audio = np.stack([tone_audio(row, t_y // t_x, hp.hop_length,
+                                 hp.sample_rate) for row in ids])
+    spec = stft.spectrogram(torch.from_numpy(audio), hp.filter_length,
+                            hp.hop_length, hp.win_length)
+    return {
+        "phoneme_ids": ids.astype(np.int64),
+        "phoneme_lengths": np.full((batch,), t_x, np.int32),
+        "spec": spec[:, :t_y].numpy(),
+        "spec_lengths": np.full((batch,), min(t_y, spec.shape[1]), np.int32),
+        "audio": audio,
+    }
+
+
+def overfit_phase(torch, dev, seed: int):
+    """250 steps on two learnable utterances (micro widths), held to the
+    margins of tests/test_overfit_tiny.py:117-123."""
+    from phoonnx_tpu_torch.models.vits.model import VitsHParams
+    from phoonnx_tpu_torch.train.step import (TrainConfig, batch_to_device,
+                                              init_train_state, train_step)
+    from phoonnx_tpu_torch.train.trainer import step_generator
+
+    hp = VitsHParams.preset("micro", n_vocab=40)
+    cfg = TrainConfig(learning_rate=2e-4, steps_per_epoch=10 ** 6,
+                      disc_periods=(2, 3), disc_channel_scale=4)
+    state = init_train_state(hp, cfg, torch.Generator().manual_seed(seed),
+                             device=dev)
+    batch = batch_to_device(learnable_batch(torch, hp), dev)
+    keys = ("loss_mel", "loss_gen_all", "loss_dur", "loss_disc_all")
+    series = {k: [] for k in keys}
+    t0 = time.perf_counter()
+    for i in range(OVERFIT_STEPS):
+        state, m = train_step(state, batch, hp, cfg,
+                              generator=step_generator(dev, 7, i))
+        for k, v in zip(keys, torch.stack([m[k] for k in keys]).tolist()):
+            series[k].append(v)
+        if i % 25 == 0 or i == OVERFIT_STEPS - 1:
+            print(f"overfit: step {i} " + " ".join(
+                f"{k}={series[k][-1]:.4f}" for k in keys), flush=True)
+    wall = time.perf_counter() - t0
+    for k in keys:
+        check(all(math.isfinite(v) for v in series[k]),
+              f"overfit: {k} went non-finite")
+    first = {k: statistics.mean(series[k][:20]) for k in keys}
+    last = {k: statistics.mean(series[k][-20:]) for k in keys}
+    tail = series["loss_disc_all"][-50:]
+    print(f"overfit: {OVERFIT_STEPS} steps in {wall:.1f} s; means of the "
+          f"first/last 20 steps: mel {first['loss_mel']:.4f} -> "
+          f"{last['loss_mel']:.4f}, gen_all {first['loss_gen_all']:.4f} -> "
+          f"{last['loss_gen_all']:.4f}, dur {first['loss_dur']:.4f} -> "
+          f"{last['loss_dur']:.4f}; disc over the last 50 in "
+          f"[{min(tail):.4f}, {max(tail):.4f}]", flush=True)
+    check(last["loss_mel"] < 0.65 * first["loss_mel"],
+          "overfit: mel loss did not fall below 0.65x its start")
+    check(last["loss_gen_all"] < 0.30 * first["loss_gen_all"],
+          "overfit: generator loss did not fall below 0.30x its start")
+    check(last["loss_dur"] < 0.95 * first["loss_dur"],
+          "overfit: duration loss did not fall below 0.95x its start")
+    check(1e-3 < min(tail) and max(tail) < 20.0,
+          "overfit: discriminator left its healthy band")
 
 
 def medium_params(torch, seed):
@@ -513,7 +865,7 @@ def main() -> None:
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--profile", action="store_true",
                         help="also print a torch.profiler breakdown of one "
-                        "~250-id request")
+                        "~250-id request and of one medium training step")
     args = parser.parse_args()
     start = time.perf_counter()
 
@@ -538,8 +890,8 @@ def main() -> None:
     print(f"build: {len(port_cuda.LIBRARIES)} libraries from "
           f"phoonnx_tpu_torch/csrc in {build_s:.1f} s", flush=True)
 
-    hp, params, flow_g, gin = medium_params(torch, args.seed)
     dev = torch.device("cuda")
+    hp, params, flow_g, gin = medium_params(torch, args.seed)
     on_card = vits_model.attach_fused_specs(
         vits_model.params_to_device(params, dev))
     from phoonnx_tpu_torch.models.vits import fused_flow
@@ -548,22 +900,31 @@ def main() -> None:
         vits_model.params_to_device(flow_g, dev)), "gin": gin}
     results = kernel_phases(torch, on_card, flow_g_params, args.seed, dev)
     del on_card
+    results["D"] = mas_phase(torch, dev, args.seed)
 
+    # serving: kernels A, B and C
     model_path, config_path = write_voice(
         torch, params, hp, ROOT / "build" / "chip_smoke")
     voice, launches, _ = main_path(torch, model_path, config_path, args.seed)
     path_vs_plain(torch, voice, args.seed + 1)
     if args.profile:
         profile_request(torch, voice, args.seed + 2)
+    del voice
+
+    # training: kernel D
+    launches["D"], _ = training_phase(torch, ROOT, args.seed, args.profile)
+    overfit_phase(torch, dev, args.seed)
 
     jax_dir = "phoonnx_tpu/models/vits"
     sources = {"A": ("fused_encoder", f"{jax_dir}/fused_encoder.py:195"),
                "B": ("fused_flow", f"{jax_dir}/fused_flow.py:217"),
-               "C": ("fused_stage", f"{jax_dir}/fused_stage.py:250")}
+               "C": ("fused_stage", f"{jax_dir}/fused_stage.py:250"),
+               "D": ("mas", "phoonnx_tpu/ops/mas_pallas.py:36")}
     line = []
     for name, (lib, replaces) in sources.items():
         res = results[name]
-        print(f"library_ms {name}: null, {NO_LIBRARY}", flush=True)
+        reason = NO_LIBRARY_MAS if name == "D" else NO_LIBRARY
+        print(f"library_ms {name}: null, {reason}", flush=True)
         line.append({"name": f"{name}:{lib}", "route": "cuda",
                      "source": f"phoonnx_tpu_torch/csrc/{lib}.cu",
                      "replaces": replaces, "launches": launches[name],

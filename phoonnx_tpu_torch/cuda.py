@@ -26,7 +26,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "phoonnx_tpu_torch"
-LIBRARIES = ("fused_encoder", "fused_flow", "fused_stage")
+LIBRARIES = ("fused_encoder", "fused_flow", "fused_stage", "mas")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 

@@ -77,8 +77,12 @@ def _absolute_to_relative(x: Tensor) -> Tensor:
 
 
 def multi_head_attention(params, x: Tensor, c: Tensor,
-                         attn_mask: Optional[Tensor] = None) -> Tensor:
-    """Self/cross attention; x (queries) and c (keys/values) are [B, T, C]."""
+                         attn_mask: Optional[Tensor] = None,
+                         p_dropout: float = 0.0,
+                         generator: Optional[torch.Generator] = None,
+                         deterministic: bool = True) -> Tensor:
+    """Self/cross attention; x (queries) and c (keys/values) are [B, T, C].
+    In training, dropout acts on the attention probabilities."""
     n_heads = params["n_heads"]
     k_channels = params["k_channels"]
     window_size = params["window_size"]
@@ -105,6 +109,7 @@ def multi_head_attention(params, x: Tensor, c: Tensor,
     if attn_mask is not None:
         scores = scores.masked_fill(attn_mask == 0, -1e4)
     p_attn = torch.softmax(scores, dim=-1)
+    p_attn = nn.dropout(p_attn, p_dropout, generator, deterministic)
 
     output = torch.einsum("bhts,bhsd->bhtd", p_attn, v)
     if window_size is not None:
@@ -139,10 +144,13 @@ def _same_pad(x: Tensor, kernel_size: int) -> Tensor:
     return F.pad(x, (0, 0, (kernel_size - 1) // 2, kernel_size // 2))
 
 
-def ffn(params, x: Tensor, x_mask: Tensor) -> Tensor:
+def ffn(params, x: Tensor, x_mask: Tensor, p_dropout: float = 0.0,
+        generator: Optional[torch.Generator] = None,
+        deterministic: bool = True) -> Tensor:
     kernel_size = params["kernel_size"]
     h = nn.apply_conv(params["conv_1"], _same_pad(x * x_mask, kernel_size))
     h = torch.relu(h)
+    h = nn.dropout(h, p_dropout, generator, deterministic)
     h = nn.apply_conv(params["conv_2"], _same_pad(h * x_mask, kernel_size))
     return h * x_mask
 
@@ -169,15 +177,24 @@ def init_encoder(generator, hidden_channels: int, filter_channels: int,
     return {"layers": layers}
 
 
-def encoder_plain(params, x: Tensor, x_mask: Tensor) -> Tensor:
+def encoder_plain(params, x: Tensor, x_mask: Tensor, p_dropout: float = 0.0,
+                  generator: Optional[torch.Generator] = None,
+                  deterministic: bool = True) -> Tensor:
     """The encoder stack in plain PyTorch ops: the plain version of
-    kernel A. x [B, T, H], x_mask [B, T, 1] -> hidden [B, T, H] * mask."""
+    kernel A, and the training encoder (dropout on the attention
+    probabilities, inside the FFN and on both residual branches, as JAX
+    ``attention.encoder``). x [B, T, H], x_mask [B, T, 1] -> hidden
+    [B, T, H] * mask."""
     attn_mask = (x_mask[:, :, None, 0] * x_mask[:, None, :, 0])[:, None]
+    drop = dict(p_dropout=p_dropout, generator=generator,
+                deterministic=deterministic)
     x = x * x_mask
     for layer in params["layers"]:
-        y = multi_head_attention(layer["attn"], x, x, attn_mask)
+        y = multi_head_attention(layer["attn"], x, x, attn_mask, **drop)
+        y = nn.dropout(y, p_dropout, generator, deterministic)
         x = nn.layer_norm(layer["norm_1"], x + y)
-        y = ffn(layer["ffn"], x, x_mask)
+        y = ffn(layer["ffn"], x, x_mask, **drop)
+        y = nn.dropout(y, p_dropout, generator, deterministic)
         x = nn.layer_norm(layer["norm_2"], x + y)
     return x * x_mask
 

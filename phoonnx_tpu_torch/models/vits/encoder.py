@@ -1,7 +1,7 @@
 """VITS text encoder (reference: phoonnx_train/vits/models.py:168-209)."""
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -28,10 +28,31 @@ def init_text_encoder(generator, n_vocab: int, out_channels: int,
 
 def text_encoder(params, x_ids: Tensor, x_mask: Tensor
                  ) -> Tuple[Tensor, Tensor, Tensor]:
-    """ids [B, T], mask [B, T, 1] -> (hidden x, prior mean m, prior logs)."""
-    hidden = params["hidden_channels"]
-    out_channels = params["out_channels"]
-    x = nn.embedding(params["emb"], x_ids) * math.sqrt(hidden)
+    """ids [B, T], mask [B, T, 1] -> (hidden x, prior mean m, prior logs).
+    The encoder stack runs through kernel A (``attention.encoder``)."""
+    x = nn.embedding(params["emb"], x_ids) * math.sqrt(
+        params["hidden_channels"])
     x = attention.encoder(params["encoder"], x * x_mask, x_mask)
+    return _stats(params, x, x_mask)
+
+
+def text_encoder_train(params, x_ids: Tensor, x_mask: Tensor,
+                       p_dropout: float = 0.0,
+                       generator: Optional[torch.Generator] = None,
+                       deterministic: bool = True
+                       ) -> Tuple[Tensor, Tensor, Tensor]:
+    """The training text encoder (JAX ``text_encoder`` with dropout): the
+    plain, differentiable encoder stack. The JAX training forward runs the
+    XLA encoder, never its kernel, and kernel A has no backward."""
+    x = nn.embedding(params["emb"], x_ids) * math.sqrt(
+        params["hidden_channels"])
+    x = attention.encoder_plain(params["encoder"], x * x_mask, x_mask,
+                                p_dropout=p_dropout, generator=generator,
+                                deterministic=deterministic)
+    return _stats(params, x, x_mask)
+
+
+def _stats(params, x: Tensor, x_mask: Tensor):
+    out_channels = params["out_channels"]
     stats = nn.apply_conv(params["proj"], x) * x_mask
     return x, stats[..., :out_channels], stats[..., out_channels:]

@@ -140,3 +140,37 @@ def generator(params, x: Tensor, g: Optional[Tensor] = None,
         x = fused_stage.apply_group(stages[i], x.contiguous(),
                                     valid=valid * cum_up)
     return x[..., 0]
+
+
+def generator_train(params, x: Tensor, g: Optional[Tensor] = None) -> Tensor:
+    """The decoder the training step differentiates: latent frames
+    [B, T, C] -> waveform [B, T * prod(rates)], in plain PyTorch ops.
+
+    This is the JAX semantics, not a fallback: the JAX training forward
+    decodes a segment of whole frames with no frame lengths through the
+    XLA path of ``hifigan.generator`` (no padding to mask, no kernel), and
+    kernel C has no backward. The stages are conv_pre, then per upsampling
+    stage a leaky ReLU, the transposed conv and the mean of the stage's
+    resblocks, then leaky ReLU 0.01, conv_post and tanh (models.py:345-365).
+    """
+    num_kernels = params["num_kernels"]
+    resblock_fn = (modules.resblock1 if params["resblock_type"] == "1"
+                   else modules.resblock2)
+    x = nn.apply_conv(params["conv_pre"], x, padding=3)
+    if g is not None:
+        x = x + nn.apply_conv(params["cond"], g)
+    for i, up in enumerate(params["ups"]):
+        rate = params["upsample_rates"][i]
+        kernel = params["upsample_kernel_sizes"][i]
+        x = nn.leaky_relu(x, modules.LRELU_SLOPE)
+        x = nn.conv_transpose1d(x, nn.resolve_weight(up), up.get("bias"),
+                                stride=rate, padding=(kernel - rate) // 2)
+        acc = None
+        for j in range(num_kernels):
+            out = resblock_fn(params["resblocks"][i * num_kernels + j], x)
+            acc = out if acc is None else acc + out
+        x = acc / num_kernels
+    x = nn.leaky_relu(x, 0.01)
+    x = nn.conv1d(x, params["conv_post"]["weight"],
+                  params["conv_post"].get("bias"), padding=3)
+    return torch.tanh(x)[..., 0]

@@ -1,15 +1,18 @@
-"""Full VITS synthesizer for inference: hyperparameters, init, synthesis.
+"""Full VITS synthesizer: hyperparameters, init, training forward,
+synthesis.
 
 PyTorch port of ``phoonnx_tpu/models/vits/model.py`` (reference
 SynthesizerTrn, phoonnx_train/vits/models.py:522-732, and the quality
 presets of phoonnx_train/vits/lightning.py:26-57 / train.py:106-120).
 
-The stochastic inputs of synthesis (the duration predictor's noise and
-the prior noise) can be injected as tensors, so a run is reproducible and
-verifiable against the JAX package; otherwise they are drawn from an
-explicit ``torch.Generator``.
+The stochastic inputs (the duration predictor's noise, the prior noise;
+in training the posterior noise, the SDP's e_q and the segment offsets)
+can be injected as tensors, so a run is reproducible and verifiable
+against the JAX package; otherwise they are drawn from an explicit
+``torch.Generator``, as are the training dropout masks.
 """
 
+import math
 from dataclasses import dataclass, replace
 from typing import Any, Dict, Optional, Tuple
 
@@ -17,6 +20,7 @@ import torch
 
 from phoonnx_tpu_torch.models.vits import (duration, encoder, hifigan, nn,
                                            posterior)
+from phoonnx_tpu_torch.ops import mas
 
 Tensor = torch.Tensor
 
@@ -248,12 +252,131 @@ def _speaker_embedding(params, hp: VitsHParams, sid: Optional[Tensor],
 
 
 def _draw(generator: Optional[torch.Generator], shape, dtype, device,
-          what: str) -> Tensor:
+          what: str, uniform: bool = False) -> Tensor:
     if generator is None:
         raise ValueError(f"pass generator= or inject {what}")
-    noise = torch.randn(shape, generator=generator, dtype=dtype,
-                        device=generator.device)
+    sample = torch.rand if uniform else torch.randn
+    noise = sample(shape, generator=generator, dtype=dtype,
+                   device=generator.device)
     return noise.to(device)
+
+
+def train_forward(params, hp: VitsHParams, x_ids: Tensor, x_lengths: Tensor,
+                  spec: Tensor, spec_lengths: Tensor,
+                  sid: Optional[Tensor] = None, deterministic: bool = False,
+                  generator: Optional[torch.Generator] = None,
+                  post_noise: Optional[Tensor] = None,
+                  e_q: Optional[Tensor] = None,
+                  slice_u: Optional[Tensor] = None) -> Dict[str, Tensor]:
+    """Training forward pass (models.py:617-679).
+
+    x_ids [B, T_x]; spec [B, T_y, C_spec]; lengths [B]. Returns the sliced
+    waveform, the duration loss, the alignment and the latents the KL
+    loss needs, under the JAX package's keys.
+
+    Noise may be injected: ``post_noise`` [B, T_y, inter_channels],
+    ``e_q`` [B, T_x, 2] (the SDP's posterior sample) and ``slice_u`` [B]
+    (uniform in [0, 1), scaled to the segment offsets); what is not
+    injected, and every dropout mask, is drawn from ``generator``.
+
+    Like the JAX training forward, every module runs in plain PyTorch ops
+    except the alignment search (kernel D on the card): the encoder stack,
+    the forward flow and the decoder are the differentiable plain
+    versions, so no tensor of this path reaches kernels A, B or C, which
+    have no backward.
+    """
+    b, t_x = x_ids.shape
+    t_y = spec.shape[1]
+    seg = hp.segment_size
+    dev = spec.device
+    drop = dict(generator=generator, deterministic=deterministic)
+
+    x_mask = nn.sequence_mask(x_lengths, t_x)[..., None].to(spec.dtype)
+    y_mask = nn.sequence_mask(spec_lengths, t_y)[..., None].to(spec.dtype)
+
+    x, m_p, logs_p = encoder.text_encoder_train(
+        params["enc_p"], x_ids, x_mask, p_dropout=hp.p_dropout, **drop)
+    g = _speaker_embedding(params, hp, sid, b, dev)
+
+    if post_noise is None:
+        post_noise = _draw(generator, (b, t_y, hp.inter_channels),
+                           spec.dtype, dev, "post_noise")
+    z, m_q, logs_q = posterior.posterior_encoder(
+        params["enc_q"], spec, y_mask, post_noise.to(dev, spec.dtype), g=g)
+    z_p = posterior.coupling_flow_plain(params["flow"], z, y_mask, g=g)
+
+    # MAS alignment, without gradients (models.py:628-650); the products
+    # are left to torch.matmul as the JAX package leaves them to XLA
+    with torch.no_grad():
+        s_p_sq_r = torch.exp(-2.0 * logs_p)  # [B, T_x, C]
+        neg_cent1 = torch.sum(-0.5 * math.log(2.0 * math.pi) - logs_p,
+                              dim=-1)[:, None, :]  # [B, 1, T_x]
+        neg_cent2 = torch.einsum("byc,bxc->byx", -0.5 * torch.square(z_p),
+                                 s_p_sq_r)
+        neg_cent3 = torch.einsum("byc,bxc->byx", z_p, m_p * s_p_sq_r)
+        neg_cent4 = torch.sum(-0.5 * torch.square(m_p) * s_p_sq_r,
+                              dim=-1)[:, None, :]
+        neg_cent = neg_cent1 + neg_cent2 + neg_cent3 + neg_cent4
+        attn_mask = y_mask * x_mask.transpose(1, 2)  # [B, T_y, T_x]
+        attn = mas.maximum_path(neg_cent, attn_mask)
+
+    w = torch.sum(attn, dim=1)[..., None]  # [B, T_x, 1] durations
+    if hp.use_sdp:
+        if e_q is None:
+            e_q = _draw(generator, (b, t_x, 2), spec.dtype, dev, "e_q")
+        l_length = duration.sdp_nll(
+            params["dp"], x, x_mask, w, e_q.to(dev, spec.dtype), g=g,
+            p_dropout=0.5, **drop)
+        l_length = l_length / torch.sum(x_mask.float())
+    else:
+        logw_ = torch.log(w + 1e-6) * x_mask
+        logw = duration.duration_predictor(params["dp"], x, x_mask, g=g,
+                                           p_dropout=0.5, **drop)
+        l_length = (torch.sum(torch.square(logw - logw_), dim=(1, 2))
+                    / torch.sum(x_mask.float()))
+
+    # expand the prior over the alignment: [B, T_y, T_x] @ [B, T_x, C]
+    m_p_exp = torch.matmul(attn, m_p)
+    logs_p_exp = torch.matmul(attn, logs_p)
+
+    # random segment slice for the vocoder (commons.py:47-63)
+    if slice_u is None:
+        slice_u = _draw(generator, (b,), torch.float32, dev, "slice_u",
+                        uniform=True)
+    max_start = torch.clamp(spec_lengths - seg + 1, min=1)
+    starts = (slice_u.to(dev, torch.float32) * max_start).to(torch.int32)
+    z_slice = _slice_segments(z, starts, seg)
+    o = hifigan.generator_train(params["dec"], z_slice, g=g)
+
+    return {
+        "audio": o,
+        "l_length": l_length,
+        "attn": attn,
+        "ids_slice": starts,
+        "x_mask": x_mask,
+        "y_mask": y_mask,
+        "z": z,
+        "z_p": z_p,
+        "m_p": m_p_exp,
+        "logs_p": logs_p_exp,
+        "m_q": m_q,
+        "logs_q": logs_q,
+    }
+
+
+def _slice_segments(x: Tensor, starts: Tensor, segment_size: int) -> Tensor:
+    """Gather fixed-size segments at per-batch offsets; x [B, T, C]."""
+    idx = starts.long()[:, None] + torch.arange(segment_size,
+                                                device=x.device)[None, :]
+    return torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[-1]))
+
+
+def slice_audio_segments(y: Tensor, starts: Tensor, segment_samples: int,
+                         hop: int) -> Tensor:
+    """Slice waveform segments aligned with frame slices; y [B, N]."""
+    idx = (starts.long() * hop)[:, None] + torch.arange(
+        segment_samples, device=y.device)[None, :]
+    return torch.gather(y, 1, idx)
 
 
 def expand_prior(m_p: Tensor, logs_p: Tensor, w_ceil: Tensor,

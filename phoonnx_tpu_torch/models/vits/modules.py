@@ -39,7 +39,9 @@ def init_dds_conv(generator, channels: int, kernel_size: int, n_layers: int):
 
 
 def dds_conv(params, x: Tensor, x_mask: Tensor,
-             g: Optional[Tensor] = None) -> Tensor:
+             g: Optional[Tensor] = None, p_dropout: float = 0.0,
+             generator: Optional[torch.Generator] = None,
+             deterministic: bool = True) -> Tensor:
     kernel_size = params["kernel_size"]
     channels = x.shape[-1]
     if g is not None:
@@ -54,6 +56,7 @@ def dds_conv(params, x: Tensor, x_mask: Tensor,
         y = nn.apply_conv(layer["pointwise"], y)
         y = nn.layer_norm(layer["norm2"], y)
         y = F.gelu(y)
+        y = nn.dropout(y, p_dropout, generator, deterministic)
         x = x + y
     return x * x_mask
 
@@ -82,8 +85,9 @@ def init_wn(generator, hidden: int, kernel_size: int, dilation_rate: int,
     return params
 
 
-def wn(params, x: Tensor, x_mask: Tensor,
-       g: Optional[Tensor] = None) -> Tensor:
+def wn(params, x: Tensor, x_mask: Tensor, g: Optional[Tensor] = None,
+       p_dropout: float = 0.0, generator: Optional[torch.Generator] = None,
+       deterministic: bool = True) -> Tensor:
     hidden = params["hidden"]
     n_layers = params["n_layers"]
     kernel_size = params["kernel_size"]
@@ -111,6 +115,7 @@ def wn(params, x: Tensor, x_mask: Tensor,
         else:
             g_l = torch.zeros_like(x_in)
         acts = nn.gated_tanh_sigmoid(x_in, g_l, hidden)
+        acts = nn.dropout(acts, p_dropout, generator, deterministic)
         res_skip = nn.apply_wn_conv(params["res_skip_layers"][i], acts)
         if i < n_layers - 1:
             x = (x + res_skip[..., :hidden]) * x_mask

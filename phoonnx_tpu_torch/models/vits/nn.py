@@ -102,6 +102,19 @@ def embedding(params, ids: Tensor) -> Tensor:
     return params["weight"][ids]
 
 
+def dropout(x: Tensor, rate: float, generator: Optional[torch.Generator],
+            deterministic: bool) -> Tensor:
+    """Inverted dropout with its mask drawn from ``generator`` (which
+    lives on x's device); the identity when deterministic, at rate 0 or
+    without a generator, as in the JAX package."""
+    if deterministic or rate == 0.0 or generator is None:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                   device=x.device))
+
+
 # ---------------------------------------------------------------------------
 # Masks and paths
 # ---------------------------------------------------------------------------

@@ -1,11 +1,11 @@
-"""Posterior encoder skeleton and the coupling-flow stack.
+"""Posterior encoder and the coupling-flow stack.
 
-Reference: phoonnx_train/vits/models.py:212-296. Only the flow runs at
-synthesis; the posterior encoder's parameters are kept so voices import
-into the same tree (its forward belongs to the training slice).
+Reference: phoonnx_train/vits/models.py:212-296. Synthesis runs the flow
+in reverse (kernel B); training runs the posterior encoder and the flow
+forward, in plain PyTorch ops as the JAX training forward does.
 """
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -26,6 +26,23 @@ def init_posterior_encoder(generator, in_channels: int, out_channels: int,
                                gin_channels=gin_channels),
         "proj": nn.init_conv(generator, out_channels * 2, hidden_channels, 1),
     }
+
+
+def posterior_encoder(params, y: Tensor, y_mask: Tensor, noise: Tensor,
+                      g: Optional[Tensor] = None
+                      ) -> Tuple[Tensor, Tensor, Tensor]:
+    """spec [B, T, C_spec] -> (z sample, m_q, logs_q).
+
+    ``noise`` [B, T, C_out] is the reparameterisation sample (explicit for
+    reproducibility; torch.randn_like in the reference, models.py:295).
+    """
+    out_channels = params["out_channels"]
+    h = nn.apply_conv(params["pre"], y) * y_mask
+    h = modules.wn(params["enc"], h, y_mask, g=g)
+    stats = nn.apply_conv(params["proj"], h) * y_mask
+    m, logs = stats[..., :out_channels], stats[..., out_channels:]
+    z = (m + noise * torch.exp(logs)) * y_mask
+    return z, m, logs
 
 
 def init_residual_coupling_block(generator, channels: int,

@@ -1,0 +1,147 @@
+"""Kernel D: monotonic alignment search (MAS), the VITS training alignment.
+
+PyTorch port of ``phoonnx_tpu/ops/mas.py`` (``maximum_path`` :37, the
+``lax.scan`` dynamic program) whose Pallas kernel
+``phoonnx_tpu/ops/mas_pallas.py`` (``_mas_kernel`` :36) becomes the
+hand-written CUDA kernel ``csrc/mas.cu``.
+
+:func:`maximum_path` counts the lengths and masks the scores as the JAX
+function does, then launches the kernel for a CUDA tensor or runs
+:func:`maximum_path_plain` for a CPU tensor. Both compute the JAX scan's
+semantics bit for bit: a forward max-plus DP over spec frames on the full
+``[T_y, T_x]`` grid (stay vs advance, the advance forced where x == y,
+``-1e9`` as minus infinity), then a backtrack from ``x_len - 1`` that
+stays on a tie. :func:`maximum_path_numpy` is a copy of the JAX package's
+host oracle (the reference kernel's triangle loops), kept for the tests.
+"""
+
+import numpy as np
+import torch
+
+from phoonnx_tpu_torch import cuda
+
+Tensor = torch.Tensor
+
+LIBRARY = "mas"
+NEG_INF = -1e9
+
+# Launches of the kernel (one per maximum_path on the card).
+launches = 0
+
+
+def lengths_and_value(neg_cent: Tensor, attn_mask: Tensor):
+    """(value f32, y_lens int32, x_lens int32) as ``mas.py:74-79`` counts
+    them: int32 sums of the mask's first column and first row, at least 1
+    (a half-precision sum would quantize above 256), and the scores zeroed
+    outside the mask."""
+    y_lens = torch.clamp(
+        torch.sum(attn_mask[:, :, 0].to(torch.int32), dim=1), min=1)
+    x_lens = torch.clamp(
+        torch.sum(attn_mask[:, 0, :].to(torch.int32), dim=1), min=1)
+    value = torch.where(attn_mask > 0, neg_cent,
+                        torch.zeros((), dtype=neg_cent.dtype,
+                                    device=neg_cent.device)).float()
+    return (value.contiguous(), y_lens.to(torch.int32).contiguous(),
+            x_lens.to(torch.int32).contiguous())
+
+
+def maximum_path(neg_cent: Tensor, attn_mask: Tensor) -> Tensor:
+    """Best monotonic path; neg_cent / attn_mask [B, T_y, T_x] -> 0/1 path
+    [B, T_y, T_x] in neg_cent's dtype, times the mask (``mas.py:112``)."""
+    value, y_lens, x_lens = lengths_and_value(neg_cent, attn_mask)
+    if value.is_cuda:
+        path = launch(value, y_lens, x_lens)
+    else:
+        path = maximum_path_plain(value, y_lens, x_lens)
+    return path.to(neg_cent.dtype) * attn_mask
+
+
+def maximum_path_plain(value: Tensor, y_lens: Tensor,
+                       x_lens: Tensor) -> Tensor:
+    """The function kernel D computes, in plain PyTorch ops: a Python loop
+    over T_y, vectorised over batch and T_x. value [B, T_y, T_x] f32,
+    lengths [B] int32 -> path [B, T_y, T_x] f32."""
+    b, t_y, t_x = value.shape
+    dev = value.device
+    neg = torch.full((), NEG_INF, dtype=torch.float32, device=dev)
+    x_idx = torch.arange(t_x, device=dev)[None, :]
+    q_prev = torch.full((b, t_x), NEG_INF, dtype=torch.float32, device=dev)
+    q_all = torch.empty((t_y, b, t_x), dtype=torch.float32, device=dev)
+    for y in range(t_y):
+        stay = torch.where(x_idx == y, neg, q_prev)
+        # x == 0 has no diagonal predecessor; its path starts at y == 0
+        first = torch.full((b, 1), 0.0 if y == 0 else NEG_INF,
+                           dtype=torch.float32, device=dev)
+        advance = torch.cat([first, q_prev[:, :-1]], dim=1)
+        q_prev = value[:, y, :] + torch.maximum(stay, advance)
+        q_all[y] = q_prev
+
+    y_lens = y_lens.long()
+    x_cur = torch.clamp(x_lens.long(), 1, t_x) - 1
+    path = torch.zeros((b, t_y, t_x), dtype=torch.float32, device=dev)
+    for y in range(t_y - 1, -1, -1):
+        inside = y < y_lens
+        path[:, y, :] = ((x_idx == x_cur[:, None])
+                         & inside[:, None]).to(torch.float32)
+        q_prev = q_all[max(y - 1, 0)]
+        q_stay = torch.gather(q_prev, 1, x_cur[:, None])[:, 0]
+        q_diag = torch.gather(q_prev, 1,
+                              torch.clamp(x_cur - 1, min=0)[:, None])[:, 0]
+        advance = (x_cur != 0) & ((x_cur == y) | (q_stay < q_diag))
+        x_cur = torch.where(inside & (y > 0) & advance, x_cur - 1, x_cur)
+    return path
+
+
+def launch(value: Tensor, y_lens: Tensor, x_lens: Tensor) -> Tensor:
+    """Kernel D on the card (no plain path)."""
+    global launches
+    b, t_y, t_x = value.shape
+    dev = value.device
+    cuda.require(value, "value", dev)
+    cuda.require(y_lens, "y_lens", dev, torch.int32, (b,))
+    cuda.require(x_lens, "x_lens", dev, torch.int32, (b,))
+    path = torch.empty_like(value)
+    scores = torch.empty_like(value)  # the forward DP's rows, for the backtrack
+    fn = cuda.function(LIBRARY, "mas_path",
+                       [cuda.c_ptr] * 5 + [cuda.c_int] * 3 + [cuda.c_ptr])
+    status = fn(cuda.ptr(value), cuda.ptr(y_lens), cuda.ptr(x_lens),
+                cuda.ptr(path), cuda.ptr(scores), b, t_y, t_x,
+                cuda.stream_of(value))
+    cuda.check(LIBRARY, status, "mas_path")
+    launches += 1
+    return path
+
+
+def maximum_path_numpy(neg_cent: np.ndarray, attn_mask: np.ndarray
+                       ) -> np.ndarray:
+    """Oracle with the reference kernel's exact loops (core.pyx:7-42).
+
+    Its triangle loops leave cells outside the reachable band uncomputed,
+    so where x_len > y_len (no monotonic path exists) it differs from the
+    full-grid DP above; everywhere else the two agree."""
+    neg_cent = np.asarray(neg_cent, dtype=np.float32).copy()
+    attn_mask = np.asarray(attn_mask)
+    b = neg_cent.shape[0]
+    path = np.zeros_like(neg_cent, dtype=np.float32)
+    y_lens = attn_mask[:, :, 0].sum(1).astype(int)
+    x_lens = attn_mask[:, 0, :].sum(1).astype(int)
+
+    for i in range(b):
+        value = neg_cent[i]
+        t_y, t_x = max(y_lens[i], 1), max(x_lens[i], 1)
+        for y in range(t_y):
+            for x in range(max(0, t_x + y - t_y), min(t_x, y + 1)):
+                v_cur = NEG_INF if x == y else value[y - 1, x]
+                if x == 0:
+                    v_prev = 0.0 if y == 0 else NEG_INF
+                else:
+                    v_prev = value[y - 1, x - 1]
+                value[y, x] += max(v_prev, v_cur)
+        index = t_x - 1
+        for y in range(t_y - 1, -1, -1):
+            path[i, y, index] = 1.0
+            if index != 0 and (
+                index == y or value[y - 1, index] < value[y - 1, index - 1]
+            ):
+                index -= 1
+    return path

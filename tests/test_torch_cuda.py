@@ -2,9 +2,10 @@
 
 Marked ``cuda``: each test needs an NVIDIA GPU and ``nvcc`` and skips
 without them (the CPU suite imports this file and skips every test). On
-the machine with the card run them with::
+the machine with the card, which has no JAX for ``tests/conftest.py`` to
+import, run them with::
 
-    python -m pytest tests/test_torch_cuda.py -m cuda -q
+    python -m pytest --noconftest tests/test_torch_cuda.py -q
 
 The shapes are small; ``chip_smoke.py`` runs the same comparisons at the
 medium preset's shapes and drives the whole synthesis path.
@@ -17,6 +18,7 @@ import torch
 from phoonnx_tpu_torch.models.vits import (attention, fused_encoder,
                                            fused_flow, fused_stage, hifigan,
                                            model, modules, posterior)
+from phoonnx_tpu_torch.ops import mas
 
 pytestmark = pytest.mark.cuda
 
@@ -117,6 +119,31 @@ def test_resblock1_group_kernel(device):
     torch.cuda.synchronize()
     assert np.isfinite(got.cpu().numpy()).all()
     assert (got - want).abs().max().item() < TOL
+
+
+@pytest.mark.parametrize("lengths", [[(96, 40), (50, 17), (30, 33)],
+                                     [(300, 64)]])
+def test_mas_kernel(device, lengths):
+    """Kernel D is bit-identical to its plain version: ragged batches, an
+    x_len above y_len, ties from integer scores, T_y above 256."""
+    b = len(lengths)
+    t_y = max(y for y, _ in lengths)
+    t_x = max(x for _, x in lengths)
+    gen = torch.Generator(device=device).manual_seed(5)
+    neg_cent = torch.randn(b, t_y, t_x, device=device, generator=gen)
+    neg_cent[0] = torch.round(neg_cent[0] * 2)
+    mask = torch.zeros(b, t_y, t_x, device=device)
+    for i, (y, x) in enumerate(lengths):
+        mask[i, :y, :x] = 1
+    value, y_lens, x_lens = mas.lengths_and_value(neg_cent, mask)
+    before = mas.launches
+    got = mas.maximum_path(neg_cent, mask)
+    assert mas.launches == before + 1
+    want = mas.maximum_path_plain(value, y_lens, x_lens) * mask
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(mas.launch(value, y_lens, x_lens),
+                       mas.maximum_path_plain(value, y_lens, x_lens))
 
 
 def test_missing_specs_raise_on_the_card(device, params):

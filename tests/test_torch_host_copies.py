@@ -1,7 +1,7 @@
 """The port's copies of the JAX package's host modules must not drift.
 
 ``phoonnx_tpu_torch`` imports nothing of ``phoonnx_tpu``: it keeps its own
-copies of the JAX-free front-end and ONNX modules. Each copy must equal
+copies of the JAX-free front-end, ONNX and training-data modules. Each copy must equal
 its original once ``phoonnx_tpu.`` is rewritten to ``phoonnx_tpu_torch.``.
 ``config.py`` and ``phonemizers/base.py`` are trimmed copies, checked on
 the classes and functions they keep.
@@ -18,7 +18,8 @@ PORT_PKG = ROOT / "phoonnx_tpu_torch"
 
 VERBATIM = ["config.py", "phoneme_ids.py", "util.py", "numbers.py",
             "dates.py", "sentences.py", "langtags.py", "onnx/wire.py",
-            "onnx/reader.py", "onnx/writer.py", "onnx/dequant.py"]
+            "onnx/reader.py", "onnx/writer.py", "onnx/dequant.py",
+            "train/dataset.py"]
 VERBATIM.remove("config.py")  # trimmed: see test_config_copy
 
 

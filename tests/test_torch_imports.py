@@ -2,7 +2,7 @@
 
 (a) A fresh interpreter whose import system refuses ``jax``, ``jaxlib``
 and ``phoonnx_tpu`` (but not ``phoonnx_tpu_torch``) imports every module
-of the port and synthesizes on the CPU. (b) The entry points default to
+of the port, synthesizes and takes one training step on the CPU. (b) The entry points default to
 CUDA and raise without it; they never drop to the CPU on their own.
 """
 
@@ -34,6 +34,10 @@ names = [m.name for m in pkgutil.walk_packages(
 for name in names:
     importlib.import_module(name)
 assert len(names) >= 25, names
+for trained in ("ops.mas", "ops.stft", "models.vits.discriminator",
+                "train.losses", "train.step", "train.dataset",
+                "train.checkpoint", "train.trainer"):
+    assert "phoonnx_tpu_torch." + trained in names, trained
 
 import torch
 from phoonnx_tpu_torch.infer import VitsEngine
@@ -45,6 +49,17 @@ engine = VitsEngine(random_params(hp, torch.Generator().manual_seed(0)), hp,
 audio = engine.synthesize_ids([1, 4, 5, 6, 2], seed=0)
 assert audio.ndim == 1 and len(audio) % hp.total_upsample == 0
 assert torch.isfinite(torch.from_numpy(audio)).all()
+from phoonnx_tpu_torch.train import step
+cfg = step.TrainConfig(disc_periods=(2,), disc_channel_scale=4)
+state = step.init_train_state(hp, cfg)
+rng = torch.Generator().manual_seed(1)
+batch = {"phoneme_ids": torch.randint(1, 32, (2, 7), generator=rng),
+         "phoneme_lengths": torch.tensor([7, 5], dtype=torch.int32),
+         "spec": torch.rand(2, 24, hp.spec_channels, generator=rng),
+         "spec_lengths": torch.tensor([24, 20], dtype=torch.int32),
+         "audio": torch.rand(2, 24 * hp.hop_length, generator=rng) - 0.5}
+state, metrics = step.train_step(state, batch, hp, cfg, generator=rng)
+assert state.step == 1 and all(torch.isfinite(v) for v in metrics.values())
 leaked = sorted(m for m in sys.modules
                 if any(m == b or m.startswith(b + ".") for b in BLOCKED))
 assert not leaked, leaked

@@ -1,0 +1,86 @@
+"""The port's trainer end to end on the CPU, on a tiny synthetic dataset.
+
+``run_training(device="cpu")`` at the ``micro`` preset, on a dataset dir
+written by ``chip_smoke.write_dataset`` (the writer the card run uses, at
+shorter lengths): two steps of one epoch write a checkpoint, log finite
+losses and move the parameters. Without a GPU the default device raises.
+"""
+
+import logging
+import math
+
+import pytest
+import torch
+
+import chip_smoke
+from phoonnx_tpu_torch.models.vits.model import VitsHParams
+from phoonnx_tpu_torch.train import checkpoint, step, trainer
+
+from tests.test_torch_train_forward import one_torch_thread  # noqa: F401
+
+KW = dict(quality="micro", batch_size=2, max_epochs=1, validation_split=0.2,
+          disc_periods=(2,), disc_channel_scale=4, log_every=1, seed=3,
+          device="cpu")
+
+
+@pytest.fixture(scope="module")
+def dataset(tmp_path_factory):
+    hp = VitsHParams.preset("micro", n_vocab=40)
+    return chip_smoke.write_dataset(torch, tmp_path_factory.mktemp("data"),
+                                    hp, 5, seed=1, seconds=(0.05, 0.12))
+
+
+def test_run_training_on_cpu(dataset, caplog):
+    with caplog.at_level(logging.INFO, logger="trainer"):
+        run = trainer.run_training(str(dataset), **KW)
+    assert [r["step"] for r in run.steps] == [1, 2]
+    for record in run.steps:
+        assert all(math.isfinite(record[k]) for k in step.METRICS), record
+    assert any("loss_g=" in r.getMessage() for r in caplog.records)
+    assert len(run.val_losses) == 1 and math.isfinite(run.val_losses[0])
+
+    # the parameters moved from the seed's initialisation
+    cfg = step.TrainConfig(disc_periods=(2,), disc_channel_scale=4)
+    init = step.init_train_state(run.hp, cfg, torch.Generator().manual_seed(3))
+    now = step.leaves(run.state.params_g) + step.leaves(run.state.params_d)
+    before = step.leaves(init.params_g) + step.leaves(init.params_d)
+    moved = sum(not torch.equal(a, b) for a, b in zip(now, before))
+    assert moved > len(now) // 2, (moved, len(now))
+
+    # the checkpoint holds the final state
+    assert run.checkpoint.endswith("step_2.npz")
+    assert checkpoint.latest_checkpoint(
+        str(dataset / "checkpoints")) == run.checkpoint
+    fresh = step.init_train_state(run.hp, cfg)
+    checkpoint.restore(run.checkpoint, fresh)
+    assert fresh.step == 2
+    for a, b in zip(now, step.leaves(fresh.params_g)
+                    + step.leaves(fresh.params_d)):
+        assert torch.equal(a, b)
+
+
+def test_resume_continues_from_the_checkpoint(dataset):
+    first = trainer.run_training(str(dataset), **KW)
+    resumed = trainer.run_training(
+        str(dataset), **dict(KW, max_epochs=2),
+        resume_from_checkpoint=first.checkpoint)
+    assert [r["step"] for r in resumed.steps] == [3, 4]
+    assert resumed.checkpoint.endswith("step_4.npz")
+
+
+def test_default_device_needs_a_gpu(dataset, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    kw = {k: v for k, v in KW.items() if k != "device"}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        trainer.run_training(str(dataset), **kw)
+    with pytest.raises(RuntimeError):
+        trainer.main(["--dataset-dir", str(dataset), "--quality", "micro"])
+
+
+def test_cli_takes_only_ported_options(dataset):
+    trainer.main(["--dataset-dir", str(dataset), "--quality", "micro",
+                  "--max-epochs", "0", "--device", "cpu"])
+    for option in ("--remat", "--grad-accum=2", "--profile-dir=x",
+                   "--compute-dtype=bfloat16", "--mas-impl=scan"):
+        with pytest.raises(SystemExit):
+            trainer.main(["--dataset-dir", str(dataset), option])
