@@ -10,11 +10,14 @@ another sm_90a card) and the CUDA toolkit. The script
    CUDA kernel of the port from ``phoonnx_tpu_torch/csrc`` (one ``nvcc``
    per source, all started together);
 2. holds each kernel against its plain PyTorch version on the card at the
-   shapes of its path (medium synthesis for A, B and C; a medium training
-   batch of 16 for D) and times both (median of CUDA-event timings after
-   warm-up, over varied inputs), beside the kernel's bound: the larger of
-   its float32 operations over the card's SIMT peak and its bytes over
-   the memory rate;
+   shapes of its path (medium synthesis for A, B and C, and A on a ragged
+   pair of 1024 and 700 ids; a medium training batch of 16 for D) and
+   times both (median of CUDA-event timings after warm-up, over varied
+   inputs), beside the kernel's bound: the larger of its float32
+   operations over the card's SIMT peak and its bytes over the memory
+   rate; counts, with torch.profiler, the device kernels inside one call
+   of A and of B (each is one cooperative launch), and prints their time
+   by phase with the cost of one grid barrier;
 3. serving: writes a medium voice (random weights from ``--seed``) with
    the port's ONNX writer, loads it with ``TTSVoice.load`` on the default
    device and answers three single requests and one ragged batch of four,
@@ -210,22 +213,28 @@ def kernel_phases(torch, params, flow_g_params, seed, dev):
                 "bound_ms": b_ms, "bound_by": b_by, "flops": flops,
                 "bytes": nbytes}
 
-    # --- A: the text-encoder stack, T_x = 128 ---
+    # --- A: the text-encoder stack, T_x = 128, and a long ragged pair ---
     enc_spec = params["enc_p"]["encoder"]["fused"]
     hid = enc_spec["n_heads"] * enc_spec["dk"]
     filt = enc_spec["w_ffn1"].shape[-1]
-    for lengths in ([128], [128, 97, 64, 33]):
-        mask = mask_of(lengths, 128)
-        inputs = [(torch.randn(len(lengths), 128, hid, device=dev,
+    for lengths in ([128], [128, 97, 64, 33], [1024, 700]):
+        t_x = max(lengths)
+        mask = mask_of(lengths, t_x)
+        inputs = [(torch.randn(len(lengths), t_x, hid, device=dev,
                                generator=gen) * mask, mask)
                   for _ in range(4)]
-        nbytes = (2 * len(lengths) * 128 * hid * 4 + tensor_bytes(enc_spec)
+        nbytes = (2 * len(lengths) * t_x * hid * 4 + tensor_bytes(enc_spec)
                   + 4 * len(lengths))
         res = compare("A", lambda x, m: fused_encoder.apply(enc_spec, x, m),
                       lambda x, m: fused_encoder.plain(enc_spec, x, m),
                       inputs, encoder_flops(enc_spec, lengths, hid, filt),
-                      nbytes, f"B={len(lengths)} T_x=128 lengths={lengths}")
+                      nbytes, f"B={len(lengths)} T_x={t_x} lengths={lengths}")
         results.setdefault("A", res)
+        if lengths == [128]:
+            results["A"]["device_kernels"] = kernels_in_call(
+                torch, lambda: fused_encoder.apply(enc_spec, *inputs[0]),
+                "A", "encoder_persistent")
+            phase_times(torch, fused_encoder, enc_spec, inputs[0], "A")
 
     # --- B: the inverse flow, T_y = 512, without and with g ---
     for spec, lengths, gin in ((params["flow"]["fused_rev"], [512], 0),
@@ -248,6 +257,11 @@ def kernel_phases(torch, params, flow_g_params, seed, dev):
                       inputs, flow_flops(spec, lengths), nbytes,
                       f"B={len(lengths)} T_y=512 g={'yes' if gin else 'no'}")
         results.setdefault("B", res)
+        if not gin:
+            results["B"]["device_kernels"] = kernels_in_call(
+                torch, lambda s=spec: fused_flow.apply(s, *inputs[0]), "B",
+                "flow_persistent")
+            phase_times(torch, fused_flow, spec, inputs[0], "B")
 
     # --- C: the three decoder stages at 512 frames, last with its tail ---
     frames = 512
@@ -459,6 +473,85 @@ def path_vs_plain(torch, voice, seed):
           f"span={wave_err:.3e} (frames {y_k.tolist()})", flush=True)
     check(enc_err <= KERNEL_TOL, f"encoder path differs by {enc_err:.3e}")
     check(wave_err <= PATH_TOL, f"waveform differs by {wave_err:.3e}")
+
+
+def kernels_in_call(torch, fn, label, kernel_name):
+    """The device work torch.profiler sees inside one call of fn: print
+    each kernel, memcpy and memset by name and count, and check that the
+    port's kernel ran exactly once with no copy or fill on the device.
+    Returns the number of device operations."""
+    from collections import Counter
+
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()  # warm: the first call loads the library
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = Counter(evt.name for evt in prof.events()
+                    if str(evt.device_type).endswith("CUDA")
+                    and not getattr(evt, "is_user_annotation", False))
+    total = sum(names.values())
+    own = sum(n for name, n in names.items() if kernel_name in name)
+    copies = sum(n for name, n in names.items()
+                 if name.startswith(("Memcpy", "Memset")))
+    print(f"profile: kernel {label}, one call: {total} device operations, "
+          f"{own} of them {kernel_name}, {copies} memcpy/memset: "
+          + "; ".join(f"{n} x {name[:70]}" for name, n in names.items()),
+          flush=True)
+    check(own == 1, f"kernel {label}: {own} launches of {kernel_name} in "
+          f"one call ({total} device operations seen)")
+    check(copies == 0, f"kernel {label}: {copies} memcpy/memset in one call")
+    return total
+
+
+def phase_times(torch, module, spec, args, label, reps=5):
+    """Device time of each phase inside one launch of a persistent kernel
+    (A or B), from the device clock its block 0 reads after each grid
+    barrier (median over reps launches), summed by kind of phase; and the
+    cost of one grid barrier of the same grid, from a kernel of barriers
+    alone."""
+    from phoonnx_tpu_torch import cuda as port_cuda
+    from phoonnx_tpu_torch import tiling
+
+    names = module.phases(spec)
+    stamps = torch.zeros(len(names) + 1, dtype=torch.int64, device="cuda")
+    runs = []
+    for _ in range(reps + 1):
+        module.launch(spec, *args, stamps=stamps)
+        torch.cuda.synchronize()
+        runs.append(stamps.diff().cpu().tolist())
+    per_phase = [statistics.median(r[i] for r in runs[1:]) / 1e6
+                 for i in range(len(names))]
+    kinds = {}
+    for name, ms in zip(names, per_phase):
+        kind = name.split(" ")[0]
+        kinds[kind] = kinds.get(kind, 0.0) + ms
+    query = (("fused_encoder_occupancy", args[0].shape[1], spec["dk"],
+              spec["window"]) if module.LIBRARY == "fused_encoder"
+             else ("fused_flow_occupancy",))
+    grid = tiling.grid_size(*port_cuda.occupancy(module.LIBRARY, *query))
+    probe = port_cuda.function(module.LIBRARY, "phx_barrier_probe",
+                               [port_cuda.c_int, port_cuda.c_int,
+                                port_cuda.c_ptr])
+    stream = torch.cuda.current_stream().cuda_stream
+    n = 1000
+    port_cuda.check(module.LIBRARY, probe(n, grid, stream), "barrier probe")
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    port_cuda.check(module.LIBRARY, probe(n, grid, stream), "barrier probe")
+    end.record()
+    end.synchronize()
+    barrier_us = start.elapsed_time(end) * 1e3 / n
+    print(f"phases: kernel {label}: {len(names)} phases, {sum(per_phase):.4f} "
+          f"ms from the first block's start to the last barrier, grid "
+          f"{grid} blocks; one grid barrier {barrier_us:.3f} us alone; by "
+          "kind: " + ", ".join(f"{k} {v:.4f} ms" for k, v in kinds.items()),
+          flush=True)
+    return {"phases_ms": kinds, "barrier_us": barrier_us, "grid": grid}
 
 
 def device_profile(torch, fn, label, top=20):

@@ -124,6 +124,36 @@ def check(library: str, status: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {status} ({msg})")
 
 
+_OCCUPANCY: Dict[tuple, tuple] = {}
+
+
+def occupancy(library: str, symbol: str, *args: int) -> tuple:
+    """(blocks an SM holds at once, SM count) of a persistent kernel, from
+    its C query ``symbol(*args, int out[2])`` on the current device;
+    cached per arguments."""
+    key = (library, symbol, torch.cuda.current_device(), *args)
+    found = _OCCUPANCY.get(key)
+    if found is None:
+        out = (c_int * 2)()
+        fn = function(library, symbol, [c_int] * len(args) + [c_ptr])
+        check(library, fn(*args, ctypes.cast(out, c_ptr)), symbol)
+        found = _OCCUPANCY[key] = (out[0], out[1])
+    return found
+
+
+def scratch(device: torch.device, sizes: Sequence[int]):
+    """One float32 allocation carved into buffers of the given element
+    counts, each 256-byte aligned: (the tensor that owns them, their
+    addresses). One allocation costs the host less than several."""
+    offsets, total = [], 0
+    for n in sizes:
+        offsets.append(total)
+        total += -(-n // 64) * 64
+    buf = torch.empty(max(total, 1), device=device)
+    base = buf.data_ptr()
+    return buf, [base + 4 * off for off in offsets]
+
+
 def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 

@@ -4,8 +4,9 @@ Wrapper of ``csrc/fused_encoder.cu``, which replaces the Pallas kernel
 ``phoonnx_tpu/models/vits/fused_encoder.py`` (``_kernel`` :195, ``apply``
 :292). It computes ``attention.encoder_plain``: n_layers x [windowed
 relative-position MHA + residual LayerNorm + conv FFN + residual
-LayerNorm], output zeroed on padded rows. The kernel is bound by float32
-operations on the card; its design note is at the top of the CUDA source.
+LayerNorm], output zeroed on padded rows, as ONE cooperative launch of
+persistent blocks that walk the stack's phases; its design note is at the
+top of the CUDA source, its work partition in ``tiling.py``.
 
 :func:`build_spec` stacks the per-layer weights once (engine init);
 :func:`apply` launches the kernel for a CUDA tensor and runs the plain
@@ -15,12 +16,21 @@ kernel runs or the call raises.
 
 import ctypes
 import math
+from typing import Optional
 
 import torch
 
-from phoonnx_tpu_torch import cuda
+from phoonnx_tpu_torch import cuda, tiling
 
 LIBRARY = "fused_encoder"
+# csrc/fused_encoder.cu: MAX_H (LayerNorm row width), MAX_DK and the
+# widest relative window whose table fits a 16-key slab buffer
+MAX_CHANNELS = 256
+MAX_HEAD_CHANNELS = 128
+MAX_WINDOW = 7
+# the phases of one layer, in the kernel's order
+PHASES = ("qkv", "attention", "out_proj", "add_ln1", "ffn1", "ffn2",
+          "add_ln2")
 
 # Launches of the kernel (one per apply on the card). Read and reset by
 # callers that need to show the path went through the kernel.
@@ -112,8 +122,18 @@ def apply(spec, x: torch.Tensor, x_mask: torch.Tensor) -> torch.Tensor:
     return launch(spec, x, x_mask)
 
 
-def launch(spec, x: torch.Tensor, x_mask: torch.Tensor) -> torch.Tensor:
-    """Kernel A on the card (no plain path)."""
+def phases(spec) -> list:
+    """The kernel's phases in order, as ``launch``'s stamps time them."""
+    return [f"{name} {layer}" for layer in range(spec["n_layers"])
+            for name in PHASES]
+
+
+def launch(spec, x: torch.Tensor, x_mask: torch.Tensor,
+           stamps: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Kernel A on the card (no plain path): one cooperative launch. With
+    ``stamps`` (int64, ``len(phases(spec)) + 1`` on the card) the kernel
+    also writes the device clock (ns) at its start and at the end of
+    each phase."""
     global launches
     b, t, h = x.shape
     dev = x.device
@@ -123,6 +143,12 @@ def launch(spec, x: torch.Tensor, x_mask: torch.Tensor) -> torch.Tensor:
     f = spec["w_ffn1"].shape[-1]
     if h != n_heads * dk:
         raise ValueError(f"x has {h} channels, the spec {n_heads * dk}")
+    if (dk > MAX_HEAD_CHANNELS or dk % 4 or h > MAX_CHANNELS
+            or window > MAX_WINDOW):
+        raise ValueError(f"kernel A takes at most {MAX_CHANNELS} channels, "
+                         f"{MAX_HEAD_CHANNELS} a head (a multiple of 4) and "
+                         f"a window of {MAX_WINDOW}, not {h}, {dk} and "
+                         f"{window}")
     for name in _WEIGHTS:
         cuda.require(spec[name], name, dev)
     smem = cuda.function(LIBRARY, "fused_encoder_smem_bytes",
@@ -130,21 +156,25 @@ def launch(spec, x: torch.Tensor, x_mask: torch.Tensor) -> torch.Tensor:
     if smem > 227 * 1024:
         raise ValueError(f"text length {t} needs {smem} B of shared memory "
                          f"in the attention kernel; the card grants 227 KB")
+    plan = tiling.encoder_plan(b, t, h, f, ffn_k, tiling.grid_size(
+        *cuda.occupancy(LIBRARY, "fused_encoder_occupancy", t, dk, window)))
     lengths = x_mask[:, :, 0].sum(dim=1).to(torch.int32).contiguous()
     out = torch.empty_like(x)
-    xbuf = torch.empty_like(x)
-    qkv = torch.empty(b, t, 3 * h, device=dev)
-    attn = torch.empty_like(x)
-    ybuf = torch.empty_like(x)
-    hbuf = torch.empty(b, t, f, device=dev)
+    rows = b * t
+    # xbuf, qkv, attn, part, hbuf: freed at return, reused only after the
+    # kernel (the allocator orders reuse on this stream)
+    _, bufs = cuda.scratch(dev, (rows * h, rows * 3 * h, rows * h,
+                                 plan.parts * rows * h, rows * f))
+    if stamps is not None:
+        cuda.require(stamps, "stamps", dev, torch.int64,
+                     (len(phases(spec)) + 1,))
     fn = cuda.function(LIBRARY, "fused_encoder_forward",
-                       [cuda.c_ptr] * 19 + [cuda.c_int] * 8
+                       [cuda.c_ptr] * 20 + [cuda.c_int] * 13
                        + [cuda.c_float, cuda.c_ptr])
     status = fn(cuda.ptr(x), cuda.ptr(lengths),
                 *[cuda.ptr(spec[name]) for name in _WEIGHTS],
-                cuda.ptr(xbuf), cuda.ptr(qkv), cuda.ptr(attn), cuda.ptr(ybuf),
-                cuda.ptr(hbuf), cuda.ptr(out),
-                b, t, h, f, n_layers, n_heads, window, ffn_k,
+                *bufs, cuda.ptr(out), cuda.ptr(stamps),
+                b, t, h, f, n_layers, n_heads, window, ffn_k, *plan,
                 1.0 / math.sqrt(dk), cuda.stream_of(x))
     cuda.check(LIBRARY, status, "fused_encoder_forward")
     launches += 1

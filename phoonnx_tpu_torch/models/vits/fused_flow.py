@@ -3,9 +3,9 @@
 Wrapper of ``csrc/fused_flow.cu``, which replaces the Pallas kernel
 ``phoonnx_tpu/models/vits/fused_flow.py`` (``_kernel`` :217, ``apply``
 :287). It computes ``posterior.coupling_flow_plain(..., reverse=True)``:
-n_flows x [channel flip, mean-only coupling with a gated WaveNet]. The
-kernel is bound by float32 operations; its design note is at the top of
-the CUDA source.
+n_flows x [channel flip, mean-only coupling with a gated WaveNet], as ONE
+cooperative launch of persistent blocks that walk the flows' phases; its
+design note is at the top of the CUDA source.
 
 :func:`build_spec` stacks the per-coupling weights in processing order
 with the channel flips folded in (even steps reverse the ``pre`` input
@@ -18,7 +18,7 @@ from typing import Optional
 
 import torch
 
-from phoonnx_tpu_torch import cuda
+from phoonnx_tpu_torch import cuda, tiling
 from phoonnx_tpu_torch.models.vits import nn
 
 LIBRARY = "fused_flow"
@@ -27,9 +27,21 @@ LIBRARY = "fused_flow"
 launches = 0
 
 
+def _gate_pairs(w: torch.Tensor, hidden: int) -> torch.Tensor:
+    """Interleave the gate's halves along the last axis, per WaveNet layer
+    (its width is a multiple of 2 x hidden): [tanh_0..tanh_h-1,
+    sig_0..sig_h-1] -> [tanh_0, sig_0, tanh_1, sig_1, ...], so the kernel
+    finds a channel's two gate inputs in adjacent columns."""
+    shape = w.shape
+    return w.reshape(*shape[:-1], -1, 2, hidden).transpose(-1, -2) \
+        .reshape(shape)
+
+
 def build_spec(flow_params):
     """Stacked-weight spec for the REVERSE pass of ``coupling_flow``, or
-    None when the layout is not the uniform VITS flow stack."""
+    None when the layout is not the uniform VITS flow stack. The WaveNet
+    in-convs' output columns (and the speaker terms') are interleaved by
+    :func:`_gate_pairs`."""
     flows = flow_params.get("flows")
     if not flows or len(flows) % 2 != 0:
         return None
@@ -61,8 +73,10 @@ def build_spec(flow_params):
 
         wi, bi_, wr, br = [], [], [], []
         for i in range(n_layers):
-            wi.append(nn.resolve_weight(enc["in_layers"][i]).permute(2, 1, 0))
-            bi_.append(enc["in_layers"][i]["bias"][None])
+            wi.append(_gate_pairs(
+                nn.resolve_weight(enc["in_layers"][i]).permute(2, 1, 0),
+                hidden))
+            bi_.append(_gate_pairs(enc["in_layers"][i]["bias"], hidden)[None])
             rs = nn.resolve_weight(enc["res_skip_layers"][i])[:, :, 0].T
             rb = enc["res_skip_layers"][i]["bias"][None]
             if i == n_layers - 1:
@@ -83,9 +97,10 @@ def build_spec(flow_params):
         b_post.append((bq.flip(0) if fold else bq)[None])
         if has_cond:
             cw = nn.resolve_weight(enc["cond_layer"])[:, :, 0]  # [L*2h, gin]
-            cond_w.append(cw.T)
+            cond_w.append(_gate_pairs(cw.T, hidden))
             bias = enc["cond_layer"].get("bias")
-            cond_b.append(cw.new_zeros(cw.shape[0]) if bias is None else bias)
+            cond_b.append(_gate_pairs(
+                cw.new_zeros(cw.shape[0]) if bias is None else bias, hidden))
 
     def stack(items):
         return torch.stack(items).contiguous()
@@ -147,9 +162,21 @@ def _speaker_terms(spec, g, batch: int):
                          2 * spec["hidden"]).contiguous()
 
 
+def phases(spec) -> list:
+    """The kernel's phases in order, as ``launch``'s stamps time them."""
+    layers = [name for i in range(spec["n_layers"])
+              for name in (f"in_gate {i}", f"res_skip {i}")]
+    return [f"{name} flow {f}" for f in range(spec["n_flows"])
+            for name in ("pre", *layers, "post")]
+
+
 def launch(spec, x: torch.Tensor, x_mask: torch.Tensor,
-           g: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Kernel B on the card (no plain path)."""
+           g: Optional[torch.Tensor] = None,
+           stamps: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Kernel B on the card (no plain path): one cooperative launch. With
+    ``stamps`` (int64, ``len(phases(spec)) + 1`` on the card) the kernel
+    also writes the device clock (ns) at its start and at the end of
+    each phase."""
     global launches
     b, t, c = x.shape
     dev = x.device
@@ -162,19 +189,21 @@ def launch(spec, x: torch.Tensor, x_mask: torch.Tensor,
     g_all = _speaker_terms(spec, g, b)
     if g_all is not None:
         cuda.require(g_all, "g", dev)
+    grid = tiling.grid_size(*cuda.occupancy(LIBRARY, "fused_flow_occupancy"))
     lengths = x_mask[:, :, 0].sum(dim=1).to(torch.int32).contiguous()
     out = torch.empty_like(x)
-    hbuf = torch.empty(b, t, hidden, device=dev)
-    skip = torch.empty(b, t, hidden, device=dev)
-    xin = torch.empty(b, t, 2 * hidden, device=dev)
+    # hbuf, acts, skip: freed at return, reused only after the kernel
+    _, bufs = cuda.scratch(dev, (b * t * hidden,) * 3)
+    if stamps is not None:
+        cuda.require(stamps, "stamps", dev, torch.int64,
+                     (len(phases(spec)) + 1,))
     fn = cuda.function(LIBRARY, "fused_flow_reverse",
-                       [cuda.c_ptr] * 15 + [cuda.c_int] * 8 + [cuda.c_ptr])
+                       [cuda.c_ptr] * 16 + [cuda.c_int] * 9 + [cuda.c_ptr])
     status = fn(cuda.ptr(x), cuda.ptr(out), cuda.ptr(lengths),
                 cuda.ptr(g_all), *[cuda.ptr(spec[n]) for n in _WEIGHTS],
-                cuda.ptr(hbuf), cuda.ptr(xin), cuda.ptr(skip),
-                b, t, half, hidden, spec["kernel_size"],
-                spec["dilation_rate"], spec["n_layers"], spec["n_flows"],
-                cuda.stream_of(x))
+                *bufs, cuda.ptr(stamps), b, t, half, hidden,
+                spec["kernel_size"], spec["dilation_rate"], spec["n_layers"],
+                spec["n_flows"], grid, cuda.stream_of(x))
     cuda.check(LIBRARY, status, "fused_flow_reverse")
     launches += 1
     return out

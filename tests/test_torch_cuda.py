@@ -77,6 +77,79 @@ def test_flow_kernel(device, params):
     assert (got - x).abs().max().item() > 1e-3
 
 
+# ragged batches of 1 and 4; lengths no multiple of any tile (16 rows, 32
+# columns, 16-deep slabs); T just above the attention window (4); T = 1024
+@pytest.mark.parametrize("lengths", [[37], [509, 300, 77, 6], [5],
+                                     [6, 6, 2, 1], [1024, 700],
+                                     [128, 97, 64, 33], [3333]])
+def test_encoder_kernel_shapes(device, params, lengths):
+    """Kernel A, one cooperative launch per apply, against its plain
+    version; padded rows exactly 0 and repeated calls bit-identical (its
+    split-K parts are summed in a fixed order)."""
+    spec = params["enc_p"]["encoder"]["fused"]
+    t = max(lengths)
+    mask = _mask(lengths, t, device)
+    gen = torch.Generator(device=device).manual_seed(t)
+    x = torch.randn(len(lengths), t, 192, device=device, generator=gen) * mask
+    before = fused_encoder.launches
+    got = fused_encoder.apply(spec, x, mask)
+    assert fused_encoder.launches == before + 1
+    again = fused_encoder.apply(spec, x, mask)
+    assert fused_encoder.launches == before + 2
+    want = fused_encoder.plain(spec, x, mask)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() < TOL
+    assert torch.equal(got, again)
+    for i, n in enumerate(lengths):
+        assert (got[i, n:] == 0).all()
+
+
+@pytest.fixture(scope="module")
+def flow_g(device):
+    """A multi-speaker flow of the medium widths (gin 256)."""
+    gen = torch.Generator().manual_seed(3)
+    flow = posterior.init_residual_coupling_block(gen, 192, 192, 5, 1, 4,
+                                                  gin_channels=256)
+    for f in flow["flows"]:
+        for key in ("weight", "bias"):
+            f["post"][key] = 0.05 * torch.randn(f["post"][key].shape,
+                                                generator=gen)
+    return fused_flow.build_spec(model.params_to_device(flow, device))
+
+
+@pytest.mark.parametrize("lengths,gin", [([37], 0), ([509, 300, 77, 6], 0),
+                                         ([1], 0), ([1, 1], 256),
+                                         ([512, 300], 256),
+                                         ([37, 20, 37, 5], 256)])
+def test_flow_kernel_shapes(device, params, flow_g, lengths, gin):
+    """Kernel B, one cooperative launch per apply, against its plain
+    version, with and without the speaker term."""
+    spec = flow_g if gin else params["flow"]["fused_rev"]
+    t = max(lengths)
+    mask = _mask(lengths, t, device)
+    gen = torch.Generator(device=device).manual_seed(t + gin)
+    x = torch.randn(len(lengths), t, 192, device=device, generator=gen) * mask
+    g = (torch.randn(len(lengths), 1, gin, device=device, generator=gen)
+         if gin else None)
+    before = fused_flow.launches
+    got = fused_flow.apply(spec, x, mask, g=g)
+    assert fused_flow.launches == before + 1
+    want = fused_flow.plain(spec, x, mask, g=g)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() < TOL
+    assert (got - x).abs().max().item() > 1e-3
+
+
+def test_encoder_refuses_long_text(device, params):
+    """Past the 227 KB of shared memory a block may hold, kernel A raises
+    the same error as before its redesign."""
+    t = 3400
+    mask = _mask([t], t, device)
+    with pytest.raises(ValueError, match="227 KB"):
+        fused_encoder.apply(params["enc_p"]["encoder"]["fused"],
+                            torch.zeros(1, t, 192, device=device), mask)
+
+
 @pytest.mark.parametrize("stage", [0, 1, 2])
 def test_stage_kernel(device, params, stage):
     spec = params["dec"]["fused_stages"][stage]

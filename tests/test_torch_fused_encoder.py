@@ -56,7 +56,7 @@ def _inputs(seed, lengths, t):
 
 
 def emulate_kernel(spec, x, x_mask):
-    """The launch sequence of csrc/fused_encoder.cu over the stacked spec."""
+    """The phases of csrc/fused_encoder.cu over the stacked spec."""
     b, t, h = x.shape
     heads, dk, win = spec["n_heads"], spec["dk"], spec["window"]
     mask = x_mask

@@ -69,7 +69,7 @@ def _inputs(seed, lengths, t, c, gin):
 
 
 def emulate_kernel(spec, x, x_mask, g=None):
-    """The launch sequence of csrc/fused_flow.cu over the stacked spec."""
+    """The phases of csrc/fused_flow.cu over the stacked spec."""
     b, t, c = x.shape
     half, hidden = spec["half"], spec["hidden"]
     k, rate = spec["kernel_size"], spec["dilation_rate"]
@@ -96,8 +96,9 @@ def emulate_kernel(spec, x, x_mask, g=None):
                            rate ** i)
             if g_all is not None:
                 x_in = x_in + g_all[:, f, i][:, None]
-            acts = torch.tanh(x_in[..., :hidden]) \
-                * torch.sigmoid(x_in[..., hidden:])
+            # the spec interleaves the gate's halves: 2c tanh, 2c + 1 sigmoid
+            acts = torch.tanh(x_in[..., 0::2]) \
+                * torch.sigmoid(x_in[..., 1::2])
             rs = tapconv(acts, spec["w_rs"][f, i][None],
                          spec["b_rs"][f, i, 0], 1)
             h = (h + rs[..., :hidden]) * mask
