@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (phoonnx_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed N] [--profile]
+    python3 chip_smoke.py [--seed N] [--profile] [--parent DIR]
 
 Run from the root of a checkout on a machine with an NVIDIA H100 (or
 another sm_90a card) and the CUDA toolkit. The script
@@ -10,14 +10,23 @@ another sm_90a card) and the CUDA toolkit. The script
    CUDA kernel of the port from ``phoonnx_tpu_torch/csrc`` (one ``nvcc``
    per source, all started together);
 2. holds each kernel against its plain PyTorch version on the card at the
-   shapes of its path (medium synthesis for A, B and C, and A on a ragged
-   pair of 1024 and 700 ids; a medium training batch of 16 for D) and
-   times both (median of CUDA-event timings after warm-up, over varied
-   inputs), beside the kernel's bound: the larger of its float32
-   operations over the card's SIMT peak and its bytes over the memory
-   rate; counts, with torch.profiler, the device kernels inside one call
-   of A and of B (each is one cooperative launch), and prints their time
-   by phase with the cost of one grid barrier;
+   shapes of its path (medium synthesis for A, B and C, A on a ragged
+   pair of 1024 and 700 ids, C also at the high preset's 256-channel
+   first stage; a medium training batch of 16 for D) and times both
+   (median of CUDA-event timings after warm-up, over varied inputs),
+   beside the kernel's bound: the larger of its operations over the
+   card's peak for them (float32 SIMT for A, B and D; three TF32 passes
+   a product for C, which runs 3xTF32 on the tensor cores, with its f32
+   bound beside it) and its bytes over the memory rate; counts, with
+   torch.profiler, the device kernels inside one call of A and of B
+   (each is one cooperative launch), and prints their time by phase
+   with the cost of one grid barrier; profiles kernel C conv by conv
+   (``conv:`` lines: each tap conv's (C, k, dilation), device time,
+   FLOPs and TFLOP/s beside one cuDNN ``conv1d`` of the same shape, a
+   yardstick the port never calls), and with ``--parent DIR`` (another
+   checkout, e.g. the parent commit unpacked by ``git archive``) builds
+   that checkout's kernel C and prints its times beside, and the three
+   stages' time in turn (parent, this, this, parent);
 3. serving: writes a medium voice (random weights from ``--seed``) with
    the port's ONNX writer, loads it with ``TTSVoice.load`` on the default
    device and answers three single requests and one ragged batch of four,
@@ -25,8 +34,9 @@ another sm_90a card) and the CUDA toolkit. The script
    equals the single decodes on each utterance's span, that kernels A, B
    and C were launched on that path, and that the path agrees with the
    plain PyTorch versions run on the host's CPU;
-4. training: writes a synthetic LJSpeech-style dataset (per-phoneme tones,
-   1.5 to 8 s, spectrograms from the port's STFT) and runs
+4. training: writes a synthetic LJSpeech-style dataset (45 utterances of
+   per-phoneme tones, 1.5 to 8 s, spectrograms from the port's STFT; 5
+   held out for tests, 4 validation, 36 train) and runs
    ``run_training(quality="medium", batch_size=16, max_epochs=1)`` on the
    card, printing each step's time, losses and kernel D time, checking
    finite losses, changed parameters, that kernel D was launched and A, B,
@@ -41,6 +51,8 @@ the port is not beside it, or when any check fails.
 """
 
 import argparse
+import contextlib
+import ctypes
 import json
 import math
 import shutil
@@ -55,9 +67,13 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 
 # NVIDIA H100 SXM data sheet (dense, no sparsity): float32 outside the
-# tensor cores, and HBM3 bandwidth.
+# tensor cores, TF32 on them, and HBM3 bandwidth.
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
+# kernel C multiplies on the tensor cores in 3xTF32: three TF32 products
+# (hi*hi + hi*lo + lo*hi) for each float32 one
+TF32_PASSES = 3
 
 # max-abs difference allowed between a kernel and its plain version: both
 # are float32 (TF32 off) and sum in other orders; a wrong op shows as 1e-2+.
@@ -124,8 +140,10 @@ def median_ms(torch, fn, inputs) -> float:
     return statistics.median(times)
 
 
-def bound(flops: float, nbytes: float):
-    t_ops = flops / PEAK_F32_FLOPS * 1e3
+def bound(flops: float, nbytes: float, rate: float = PEAK_F32_FLOPS):
+    """(ms, what bounds it): the larger of the operations at ``rate`` and
+    the bytes at the memory rate."""
+    t_ops = flops / rate * 1e3
     t_mem = nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
 
@@ -177,8 +195,9 @@ def stage_flops(spec, valid, channels) -> float:
 # ---------------------------------------------------------------------------
 
 
-def kernel_phases(torch, params, flow_g_params, seed, dev):
-    """Each kernel against its plain version at the medium shapes."""
+def kernel_phases(torch, params, flow_g_params, high_stage0, seed, dev):
+    """Each kernel against its plain version at the medium shapes, and
+    kernel C also at the high preset's first stage (``high_stage0``)."""
     from phoonnx_tpu_torch.models.vits import (fused_encoder, fused_flow,
                                                fused_stage)
 
@@ -190,7 +209,10 @@ def kernel_phases(torch, params, flow_g_params, seed, dev):
         lens = torch.tensor(lengths, device=dev)[:, None]
         return (pos < lens)[..., None].float()
 
-    def compare(name, kernel_fn, plain_fn, inputs, flops, nbytes, case):
+    def compare(name, kernel_fn, plain_fn, inputs, flops, nbytes, case,
+                tf32=False):
+        """The kernel against its plain version; a 3xTF32 kernel (tf32)
+        is bounded at that rate, with its f32 SIMT bound beside it."""
         got = kernel_fn(*inputs[0])
         want = plain_fn(*inputs[0])
         torch.cuda.synchronize()
@@ -201,17 +223,22 @@ def kernel_phases(torch, params, flow_g_params, seed, dev):
         err = (got - want).abs().max().item()
         k_ms = median_ms(torch, kernel_fn, inputs)
         p_ms = median_ms(torch, plain_fn, inputs)
-        b_ms, b_by = bound(flops, nbytes)
+        f32_ms, f32_by = bound(flops, nbytes)
+        b_ms, b_by = (bound(TF32_PASSES * flops, nbytes, PEAK_TF32_FLOPS)
+                      if tf32 else (f32_ms, f32_by))
+        also = (f" (3xTF32 at {PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s) "
+                f"bound_f32_ms={f32_ms:.5f} ({f32_by})" if tf32 else
+                f" ({b_by})")
         print(f"kernel {name} {case}: max_abs_err={err:.3e} "
               f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
-              f"bound_ms={b_ms:.5f} ({b_by}) flops={flops:.4e} "
+              f"bound_ms={b_ms:.5f}{also} flops={flops:.4e} "
               f"bytes={nbytes:.4e}", flush=True)
         check(err <= KERNEL_TOL,
               f"{name} {case}: kernel vs plain max-abs {err:.3e} > "
               f"{KERNEL_TOL}")
         return {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
-                "bound_ms": b_ms, "bound_by": b_by, "flops": flops,
-                "bytes": nbytes}
+                "bound_ms": b_ms, "bound_by": b_by, "bound_f32_ms": f32_ms,
+                "flops": flops, "bytes": nbytes}
 
     # --- A: the text-encoder stack, T_x = 128, and a long ragged pair ---
     enc_spec = params["enc_p"]["encoder"]["fused"]
@@ -287,7 +314,7 @@ def kernel_phases(torch, params, flow_g_params, seed, dev):
                 lambda x, v, s=spec: fused_stage.plain(s, x, v), inputs,
                 stage_flops(spec, valid, ch), nbytes,
                 f"stage {i} B={len(valid)} [{t}, {ch}] valid={valid}"
-                + (" +post" if "postW" in spec else ""))
+                + (" +post" if "postW" in spec else ""), tf32=True)
             if total is None:
                 total = dict(res)
             else:
@@ -297,10 +324,181 @@ def kernel_phases(torch, params, flow_g_params, seed, dev):
                     total[key] += res[key]
         if "C" not in results:
             # the three stage launches of one 512-frame request
-            total["bound_ms"], total["bound_by"] = bound(total["flops"],
-                                                         total["bytes"])
+            total["bound_ms"], total["bound_by"] = bound(
+                TF32_PASSES * total["flops"], total["bytes"],
+                PEAK_TF32_FLOPS)
+            total["bound_f32_ms"] = bound(total["flops"], total["bytes"])[0]
+            print(f"kernel C 3 stages B=1 512 frames: kernel_ms="
+                  f"{total['ms']:.4f} bound_ms={total['bound_ms']:.5f} "
+                  f"(3xTF32, {total['bound_by']}) bound_f32_ms="
+                  f"{total['bound_f32_ms']:.5f}", flush=True)
             results["C"] = total
+        else:
+            results["C"]["max_abs_err"] = max(results["C"]["max_abs_err"],
+                                              total["max_abs_err"])
+
+    # --- C at high's widest window: 256 channels, resblock "1" (k up to
+    # 11 at dilation 5), 512 frames ---
+    spec = high_stage0
+    ch = spec["W"].shape[1]
+    t = frames * 8
+    valid = [t, t - 1001]
+    vt = torch.tensor(valid, dtype=torch.int32, device=dev)
+    inputs = [(torch.randn(2, t, ch, device=dev, generator=gen) * 0.5, vt)
+              for _ in range(2)]
+    nbytes = 2 * t * 2 * ch * 4 + tensor_bytes(spec) + 8
+    res = compare("C", lambda x, v: fused_stage.apply_group(spec, x, v),
+                  lambda x, v: fused_stage.plain(spec, x, v), inputs,
+                  stage_flops(spec, valid, ch), nbytes,
+                  f"high stage 0 B=2 [{t}, {ch}] valid={valid}", tf32=True)
+    results["C"]["max_abs_err"] = max(results["C"]["max_abs_err"],
+                                      res["max_abs_err"])
     return results
+
+
+@contextlib.contextmanager
+def stage_library(port_cuda, fn):
+    """Route kernel C's wrapper to another build of ``fused_stage_group``
+    (``fn``, same C interface) inside the block; ``None`` keeps the
+    port's own."""
+    key = ("fused_stage", "fused_stage_group")
+    own = port_cuda._FUNCS[key]
+    if fn is not None:
+        port_cuda._FUNCS[key] = fn
+    try:
+        yield
+    finally:
+        port_cuda._FUNCS[key] = own
+
+
+def build_parent_stage(port_cuda, parent: Path):
+    """Start nvcc on another checkout's ``csrc/fused_stage.cu`` (the
+    parent commit's kernel C), with the port's flags; returns a function
+    that waits for it and loads its ``fused_stage_group``."""
+    src = parent / "phoonnx_tpu_torch" / "csrc" / "fused_stage.cu"
+    if not src.is_file():
+        fail(f"--parent: {src} does not exist")
+    out = ROOT / "build" / "chip_smoke" / "parent" / "libfused_stage.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    proc = subprocess.Popen([port_cuda._nvcc(), *port_cuda.NVCC_FLAGS, "-o",
+                             str(out), str(src)], stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT)
+
+    def load():
+        log, _ = proc.communicate()
+        check(proc.returncode == 0, "--parent: nvcc failed:\n"
+              + log.decode(errors="replace"))
+        fn = ctypes.CDLL(str(out)).fused_stage_group
+        fn.argtypes = port_cuda._FUNCS[
+            ("fused_stage", "fused_stage_group")].argtypes
+        fn.restype = ctypes.c_int
+        return fn
+
+    return load
+
+
+def stage_conv_profile(torch, port_cuda, stages, rates, dev, seed,
+                       parent=None, frames=512, reps=5):
+    """Kernel C conv by conv: torch.profiler around ``reps`` calls of
+    ``apply_group`` for each stage at B=1 and ``frames`` frames; for each
+    tap conv its (C, k, dilation), median device time, FLOPs 2*T*k*C^2
+    and TFLOP/s, beside one cuDNN ``conv1d`` of the same shape (a
+    yardstick only: the port never calls it) and, with ``parent`` (the
+    parent commit's ``fused_stage_group``), the parent kernel's time. The
+    tail kernel's time follows each last stage. With ``parent`` the three
+    stages are also timed whole, in the order parent, port, port,
+    parent."""
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    from phoonnx_tpu_torch.models.vits import fused_stage
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    builds = [("port", None)] + ([("parent", parent)] if parent else [])
+    rows, cum, calls = [], 1, []
+    for i, spec in enumerate(stages):
+        cum *= rates[i]
+        t, ch = frames * cum, spec["W"].shape[1]
+        x = torch.randn(1, t, ch, device=dev, generator=gen) * 0.5
+        valid = torch.tensor([t], dtype=torch.int32, device=dev)
+        calls.append((spec, x, valid))
+        per_call = len(spec["program"]) + ("postW" in spec)
+        times = {}
+        for label, fn in builds:
+            # the profiler now and then returns a session without its
+            # device records: such a session is taken again, twice at most
+            for attempt in range(3):
+                with stage_library(port_cuda, fn):
+                    fused_stage.apply_group(spec, x, valid)  # warm
+                    torch.cuda.synchronize()
+                    with profile(activities=[ProfilerActivity.CPU,
+                                             ProfilerActivity.CUDA]) as prof:
+                        for _ in range(reps):
+                            fused_stage.apply_group(spec, x, valid)
+                        torch.cuda.synchronize()
+                evts = sorted((e for e in prof.events()
+                               if str(e.device_type).endswith("CUDA")
+                               and ("tapconv" in e.name
+                                    or "post_kernel" in e.name)),
+                              key=lambda e: e.time_range.start)
+                if len(evts) == reps * per_call:
+                    break
+                print(f"conv: stage {i} ({label}): the profiler saw "
+                      f"{len(evts)} kernel C device kernels in {reps} "
+                      f"calls, not {reps * per_call}; profiling again",
+                      flush=True)
+            check(len(evts) == reps * per_call,
+                  f"stage {i} ({label}): {len(evts)} kernel C device "
+                  f"kernels in {reps} calls, expected {reps * per_call}")
+            times[label] = [statistics.median(
+                evts[r * per_call + j].time_range.elapsed_us()
+                for r in range(reps)) for j in range(per_call)]
+        xin = x.transpose(1, 2).contiguous()  # cuDNN's [B, C, T]
+        for j, (w0, k, dil, pad, b_idx, *_) in enumerate(spec["program"]):
+            flops = 2.0 * t * k * ch * ch
+            weight = spec["W"][w0:w0 + k].permute(2, 1, 0).contiguous()
+            bias = spec["b"][b_idx]
+            cudnn_ms = median_ms(torch, lambda a, w=weight, b=bias, p=pad,
+                                 d=dil: F.conv1d(a, w, b, padding=p,
+                                                 dilation=d), [(xin,)])
+            row = {"stage": i, "conv": j, "C": ch, "k": k, "dil": dil,
+                   "flops": flops, "us": times["port"][j],
+                   "cudnn_us": cudnn_ms * 1e3}
+            line = (f"conv: stage {i} conv {j} C={ch} k={k} dil={dil} "
+                    f"T={t}: kernel_us={row['us']:.2f} "
+                    f"tflops={flops / row['us'] / 1e6:.2f} "
+                    f"flops={flops:.4e} cudnn_us={row['cudnn_us']:.2f} "
+                    f"cudnn_tflops={flops / row['cudnn_us'] / 1e6:.2f}")
+            if parent:
+                row["parent_us"] = times["parent"][j]
+                line += (f" parent_us={row['parent_us']:.2f} parent_tflops="
+                         f"{flops / row['parent_us'] / 1e6:.2f}")
+            print(line, flush=True)
+            rows.append(row)
+        if "postW" in spec:
+            print(f"conv: stage {i} tail (lrelu, conv_post k="
+                  f"{spec['postW'].shape[0]}, tanh) T={t}: kernel_us="
+                  f"{times['port'][-1]:.2f}" + (
+                      f" parent_us={times['parent'][-1]:.2f}" if parent
+                      else ""), flush=True)
+    total = sum(r["us"] for r in rows)
+    print(f"conv: {len(rows)} tap convs {total:.2f} us of device time, "
+          f"{sum(r['flops'] for r in rows) / total / 1e6:.2f} TFLOP/s; "
+          f"cuDNN {sum(r['cudnn_us'] for r in rows):.2f} us" + (
+              f"; parent {sum(r['parent_us'] for r in rows):.2f} us"
+              if parent else ""), flush=True)
+    if parent:
+        def three_stages():
+            for spec, x, valid in calls:
+                fused_stage.apply_group(spec, x, valid)
+
+        order = []
+        for label, fn in (builds[1], builds[0], builds[0], builds[1]):
+            with stage_library(port_cuda, fn):
+                order.append((label, median_ms(torch, three_stages, [()])))
+        print("conv: kernel C 3 stages B=1 512 frames, apply_group ms in "
+              "turn: " + ", ".join(f"{label} {ms:.4f}"
+                                   for label, ms in order), flush=True)
 
 
 def write_voice(torch, params, hp, out_dir: Path):
@@ -532,7 +730,8 @@ def phase_times(torch, module, spec, args, label, reps=5):
     query = (("fused_encoder_occupancy", args[0].shape[1], spec["dk"],
               spec["window"]) if module.LIBRARY == "fused_encoder"
              else ("fused_flow_occupancy",))
-    grid = tiling.grid_size(*port_cuda.occupancy(module.LIBRARY, *query))
+    grid = tiling.grid_size(*port_cuda.occupancy(
+        module.LIBRARY, query[0], args[0].device, *query[1:]))
     probe = port_cuda.function(module.LIBRARY, "phx_barrier_probe",
                                [port_cuda.c_int, port_cuda.c_int,
                                 port_cuda.c_ptr])
@@ -729,9 +928,11 @@ def training_phase(torch, root: Path, seed: int, profile: bool):
 
     hp = VitsHParams.preset("medium")
     t0 = time.perf_counter()
+    # 45 utterances: 5 held out for tests (run_training's default), 4
+    # validation, 36 train
     data = write_dataset(torch, root / "build" / "chip_smoke" / "dataset",
-                         hp, 40, seed)
-    print(f"train: wrote 40 utterances in {time.perf_counter() - t0:.1f} s",
+                         hp, 45, seed)
+    print(f"train: wrote 45 utterances in {time.perf_counter() - t0:.1f} s",
           flush=True)
 
     # kernel D's time inside each step, from CUDA events around its launch
@@ -928,6 +1129,20 @@ def overfit_phase(torch, dev, seed: int):
           "overfit: discriminator left its healthy band")
 
 
+def high_stage0(torch, seed, dev):
+    """Kernel C's spec for the high preset's first stage (256 channels,
+    resblock "1": kernels 3, 7, 11 at dilations 1, 3, 5), on ``dev``."""
+    from phoonnx_tpu_torch.models.vits import fused_stage, model, modules
+
+    hp = model.VitsHParams.preset("high", n_layers=1)
+    dec = model.random_params(hp, torch.Generator().manual_seed(seed + 7))[
+        "dec"]
+    nk = dec["num_kernels"]
+    return fused_stage.build_group_spec(
+        model.params_to_device(dec["resblocks"][:nk], dev),
+        modules.LRELU_SLOPE)
+
+
 def medium_params(torch, seed):
     from phoonnx_tpu_torch.models.vits import model as vits_model, posterior
 
@@ -959,6 +1174,10 @@ def main() -> None:
     parser.add_argument("--profile", action="store_true",
                         help="also print a torch.profiler breakdown of one "
                         "~250-id request and of one medium training step")
+    parser.add_argument("--parent", type=Path, default=None,
+                        help="root of another checkout (the parent commit): "
+                        "build its kernel C and time it conv by conv, and "
+                        "the three stages whole, beside this one's")
     args = parser.parse_args()
     start = time.perf_counter()
 
@@ -979,6 +1198,8 @@ def main() -> None:
     from phoonnx_tpu_torch import cuda as port_cuda
     from phoonnx_tpu_torch.models.vits import model as vits_model
 
+    parent = build_parent_stage(port_cuda, args.parent) if args.parent \
+        else None
     build_s = port_cuda.build()
     print(f"build: {len(port_cuda.LIBRARIES)} libraries from "
           f"phoonnx_tpu_torch/csrc in {build_s:.1f} s", flush=True)
@@ -991,7 +1212,12 @@ def main() -> None:
 
     flow_g_params = {"fused_rev": fused_flow.build_spec(
         vits_model.params_to_device(flow_g, dev)), "gin": gin}
-    results = kernel_phases(torch, on_card, flow_g_params, args.seed, dev)
+    results = kernel_phases(torch, on_card, flow_g_params,
+                            high_stage0(torch, args.seed, dev), args.seed,
+                            dev)
+    stage_conv_profile(torch, port_cuda, on_card["dec"]["fused_stages"],
+                       on_card["dec"]["upsample_rates"], dev, args.seed,
+                       parent=parent() if parent else None)
     del on_card
     results["D"] = mas_phase(torch, dev, args.seed)
 

@@ -8,20 +8,23 @@
 // optionally followed by leaky ReLU 0.01 -> conv_post -> tanh, writing
 // audio instead of the group output.
 //
-// What bounds it on this card: float32 operations. The medium preset's
-// 30 taps cost 2*30*C^2 FLOP a sample: ~20 GFLOP for 512 frames, against
-// a few hundred MB of activation traffic (a ~0.3 ms f32 bound against
-// ~0.1 ms of bytes at 3.35 TB/s).
+// What bounds it on this card: operations at the tensor cores' 3xTF32
+// rate. The medium preset's 30 taps cost 2*30*C^2 FLOP a sample: ~20
+// GFLOP for 512 frames, three TF32 passes each (a ~0.12 ms bound at 495
+// TFLOP/s), against ~0.1 ms for its activation bytes at 3.35 TB/s.
 //
 // Design: the TPU kernel walks time tiles in order and carries each
 // tile's halo from the previous grid step. Hopper blocks run in parallel
 // and in no order, so every conv here is one tapconv launch
-// (tapconv.cuh) whose blocks read their own halo rows from device memory
-// (L2 holds the 2 MB of stage taps and most of the activations). The
-// masking is fused into the loads (lrelu(x) * mask) and the residual add,
-// the branch mean and the output mask into the stores, so each conv is
-// one read and one write of the stage tensor. Branch units are walked
-// from a small host-side program (fused_stage.build_group_spec).
+// (tapconv.cuh: mma.sync 3xTF32 tiles that stage each input window once
+// for all taps) whose blocks read their own halo rows from device memory
+// (L2 holds the stage's taps and most of the activations). The masking
+// and leaky ReLU are applied once per staged element (lrelu(x) * mask),
+// the residual add, the branch mean and the output mask in the stores,
+// so each conv is one read and one write of the stage tensor. Branch
+// units are walked from a small host-side program
+// (fused_stage.build_group_spec), one launch per conv; a persistent
+// launch per stage is still to come.
 
 #include "tapconv.cuh"
 
@@ -31,17 +34,16 @@ using namespace phx;
 
 constexpr int POST_ROWS = 128;
 
-// A = leaky_relu(x, slope) on rows s < valid[b], 0 past it
+// A = leaky_relu(x, slope) on rows s < valid[b], 0 past it (tapconv
+// reads x [B, T, C] on rows [0, end(b)) and applies the functor to each
+// element it stages)
 struct LreluMaskPro {
   const float* x;
   int T, C;
   const int* valid;
   float slope;
-  __device__ float operator()(int b, int s, int c) const {
-    if (s >= valid[b]) return 0.f;
-    const float v = x[((size_t)b * T + s) * C + c];
-    return fmaxf(v, slope * v);
-  }
+  __device__ int end(int b) const { return min(T, valid[b]); }
+  __device__ float operator()(float v) const { return fmaxf(v, slope * v); }
 };
 
 // Y = R + v (end of a residual unit)
@@ -49,9 +51,11 @@ struct ResidualEpi {
   const float* r;
   float* y;
   int T, C;
-  __device__ void operator()(int b, int t, int n, float v) const {
-    const size_t i = ((size_t)b * T + t) * C + n;
-    y[i] = r[i] + v;
+  __device__ float2 load(int b, int t, int n) const {
+    return {r[((size_t)b * T + t) * C + n], 0.f};
+  }
+  __device__ void store(int b, int t, int n, float v, float2 in) const {
+    y[((size_t)b * T + t) * C + n] = in.x + v;
   }
 };
 
@@ -63,12 +67,15 @@ struct BranchEpi {
   int T, C;
   const int* valid;
   int first, last, n_branches;
-  __device__ void operator()(int b, int t, int n, float v) const {
+  __device__ float2 load(int b, int t, int n) const {
     const size_t i = ((size_t)b * T + t) * C + n;
-    float out = r[i] + v;
-    if (!first) out = acc[i] + out;
+    return {r[i], first ? 0.f : acc[i]};
+  }
+  __device__ void store(int b, int t, int n, float v, float2 in) const {
+    float out = in.x + v;  // R + v
+    if (!first) out = in.y + out;
     if (last) out = t < valid[b] ? out / (float)n_branches : 0.f;
-    acc[i] = out;
+    acc[((size_t)b * T + t) * C + n] = out;
   }
 };
 
@@ -121,6 +128,9 @@ extern "C" int fused_stage_group(
     int post_taps, int post_pad, float post_slope, float* audio, int B,
     int T, int C, float slope, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  int dev = 0, sms = 0;
+  PHX_TRY(cudaGetDevice(&dev));
+  PHX_TRY(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev));
   const float* unit_in = x;  // residual source of the current unit
   const float* conv_in = x;
   for (int i = 0; i < n_convs; ++i) {
@@ -130,22 +140,24 @@ extern "C" int fused_stage_group(
     const int branch = row[5];
     const bool last_in_unit = row[6] != 0;
     const bool last_unit = row[7] != 0;
+    TapTile tile;
+    if (!tap_tile(B, T, C, row[1], row[2], sms, &tile))
+      return (int)cudaErrorInvalidValue;  // the wrapper refuses such shapes
     const LreluMaskPro pro{conv_in, T, C, valid, slope};
     if (!last_in_unit) {
-      PHX_TRY(tapconv_auto(w, bvec, B, T, C, C, row[1], row[2], row[3], pro,
-                           StoreEpi{tmp, T, C}, stream));
+      PHX_TRY(tapconv(tile, w, bvec, B, T, C, C, row[1], row[2], row[3], pro,
+                      StoreEpi{tmp, T, C}, stream));
       conv_in = tmp;
     } else if (last_unit) {
-      PHX_TRY(tapconv_auto(
-          w, bvec, B, T, C, C, row[1], row[2], row[3], pro,
-          BranchEpi{unit_in, acc, T, C, valid, branch == 0,
-                    branch == n_branches - 1, n_branches},
-          stream));
+      PHX_TRY(tapconv(tile, w, bvec, B, T, C, C, row[1], row[2], row[3], pro,
+                      BranchEpi{unit_in, acc, T, C, valid, branch == 0,
+                                branch == n_branches - 1, n_branches},
+                      stream));
       unit_in = conv_in = x;  // the next branch starts from the stage input
     } else {
       float* next = unit_in == ping ? pong : ping;
-      PHX_TRY(tapconv_auto(w, bvec, B, T, C, C, row[1], row[2], row[3], pro,
-                           ResidualEpi{unit_in, next, T, C}, stream));
+      PHX_TRY(tapconv(tile, w, bvec, B, T, C, C, row[1], row[2], row[3], pro,
+                      ResidualEpi{unit_in, next, T, C}, stream));
       unit_in = conv_in = next;
     }
   }
@@ -161,5 +173,23 @@ extern "C" int fused_stage_group(
         audio);
     PHX_TRY(cudaGetLastError());
   }
+  return 0;
+}
+
+// The tile tapconv takes for a conv of `taps` taps at dilation `dil` over
+// [B, T, C] on a card of `sms` SMs: out = {rows, columns, warp columns,
+// slab channels, shared-memory bytes}; nonzero if no tile fits (the
+// mirror of phoonnx_tpu_torch/tiling.py's tap_tile, compared on the card).
+extern "C" int fused_stage_tile(int B, int T, int C, int taps, int dil,
+                                int sms, int* out) {
+  TapTile tile;
+  if (!tap_tile(B, T, C, taps, dil, sms, &tile))
+    return (int)cudaErrorInvalidValue;
+  const TapShape& s = TAP_SHAPES[tile.shape];
+  out[0] = s.bm;
+  out[1] = s.bn;
+  out[2] = s.wn;
+  out[3] = tile.bk;
+  out[4] = (int)tile.smem;
   return 0;
 }

@@ -127,16 +127,19 @@ def check(library: str, status: int, what: str) -> None:
 _OCCUPANCY: Dict[tuple, tuple] = {}
 
 
-def occupancy(library: str, symbol: str, *args: int) -> tuple:
-    """(blocks an SM holds at once, SM count) of a persistent kernel, from
-    its C query ``symbol(*args, int out[2])`` on the current device;
-    cached per arguments."""
-    key = (library, symbol, torch.cuda.current_device(), *args)
+def occupancy(library: str, symbol: str, device: torch.device,
+              *args: int) -> tuple:
+    """(blocks an SM holds at once, SM count) of a persistent kernel on
+    ``device``, from its C query ``symbol(*args, int out[2])`` run with
+    that device current; cached per device and arguments."""
+    key = (library, symbol, device.index, *args)
     found = _OCCUPANCY.get(key)
     if found is None:
         out = (c_int * 2)()
         fn = function(library, symbol, [c_int] * len(args) + [c_ptr])
-        check(library, fn(*args, ctypes.cast(out, c_ptr)), symbol)
+        with torch.cuda.device(device):
+            status = fn(*args, ctypes.cast(out, c_ptr))
+        check(library, status, symbol)
         found = _OCCUPANCY[key] = (out[0], out[1])
     return found
 

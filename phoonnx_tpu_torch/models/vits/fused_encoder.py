@@ -157,7 +157,8 @@ def launch(spec, x: torch.Tensor, x_mask: torch.Tensor,
         raise ValueError(f"text length {t} needs {smem} B of shared memory "
                          f"in the attention kernel; the card grants 227 KB")
     plan = tiling.encoder_plan(b, t, h, f, ffn_k, tiling.grid_size(
-        *cuda.occupancy(LIBRARY, "fused_encoder_occupancy", t, dk, window)))
+        *cuda.occupancy(LIBRARY, "fused_encoder_occupancy", dev, t, dk,
+                        window)))
     lengths = x_mask[:, :, 0].sum(dim=1).to(torch.int32).contiguous()
     out = torch.empty_like(x)
     rows = b * t
@@ -171,11 +172,12 @@ def launch(spec, x: torch.Tensor, x_mask: torch.Tensor,
     fn = cuda.function(LIBRARY, "fused_encoder_forward",
                        [cuda.c_ptr] * 20 + [cuda.c_int] * 13
                        + [cuda.c_float, cuda.c_ptr])
-    status = fn(cuda.ptr(x), cuda.ptr(lengths),
-                *[cuda.ptr(spec[name]) for name in _WEIGHTS],
-                *bufs, cuda.ptr(out), cuda.ptr(stamps),
-                b, t, h, f, n_layers, n_heads, window, ffn_k, *plan,
-                1.0 / math.sqrt(dk), cuda.stream_of(x))
+    with torch.cuda.device(dev):
+        status = fn(cuda.ptr(x), cuda.ptr(lengths),
+                    *[cuda.ptr(spec[name]) for name in _WEIGHTS],
+                    *bufs, cuda.ptr(out), cuda.ptr(stamps),
+                    b, t, h, f, n_layers, n_heads, window, ffn_k, *plan,
+                    1.0 / math.sqrt(dk), cuda.stream_of(x))
     cuda.check(LIBRARY, status, "fused_encoder_forward")
     launches += 1
     return out

@@ -189,7 +189,8 @@ def launch(spec, x: torch.Tensor, x_mask: torch.Tensor,
     g_all = _speaker_terms(spec, g, b)
     if g_all is not None:
         cuda.require(g_all, "g", dev)
-    grid = tiling.grid_size(*cuda.occupancy(LIBRARY, "fused_flow_occupancy"))
+    grid = tiling.grid_size(
+        *cuda.occupancy(LIBRARY, "fused_flow_occupancy", dev))
     lengths = x_mask[:, :, 0].sum(dim=1).to(torch.int32).contiguous()
     out = torch.empty_like(x)
     # hbuf, acts, skip: freed at return, reused only after the kernel
@@ -199,11 +200,13 @@ def launch(spec, x: torch.Tensor, x_mask: torch.Tensor,
                      (len(phases(spec)) + 1,))
     fn = cuda.function(LIBRARY, "fused_flow_reverse",
                        [cuda.c_ptr] * 16 + [cuda.c_int] * 9 + [cuda.c_ptr])
-    status = fn(cuda.ptr(x), cuda.ptr(out), cuda.ptr(lengths),
-                cuda.ptr(g_all), *[cuda.ptr(spec[n]) for n in _WEIGHTS],
-                *bufs, cuda.ptr(stamps), b, t, half, hidden,
-                spec["kernel_size"], spec["dilation_rate"], spec["n_layers"],
-                spec["n_flows"], grid, cuda.stream_of(x))
+    with torch.cuda.device(dev):
+        status = fn(cuda.ptr(x), cuda.ptr(out), cuda.ptr(lengths),
+                    cuda.ptr(g_all), *[cuda.ptr(spec[n]) for n in _WEIGHTS],
+                    *bufs, cuda.ptr(stamps), b, t, half, hidden,
+                    spec["kernel_size"], spec["dilation_rate"],
+                    spec["n_layers"], spec["n_flows"], grid,
+                    cuda.stream_of(x))
     cuda.check(LIBRARY, status, "fused_flow_reverse")
     launches += 1
     return out

@@ -8,16 +8,18 @@ residual branches of dilated convs with leaky ReLU, every activation and
 the output rows masked to ``[0, valid)`` (so a padded batch decode equals
 the exact-length decode on the valid span), optionally followed by the
 generator's tail, leaky ReLU 0.01 -> conv_post -> tanh, as the epilogue.
-The kernel is bound by float32 operations; its design note is at the
-top of the CUDA source.
+The kernel multiplies on the tensor cores in error-compensated 3xTF32
+and is bound by operations at that rate; its design note is at the top
+of the CUDA sources (``fused_stage.cu``, ``tapconv.cuh``).
 """
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
 
-from phoonnx_tpu_torch import cuda
+from phoonnx_tpu_torch import cuda, tiling
 from phoonnx_tpu_torch.models.vits import modules, nn
 
 LIBRARY = "fused_stage"
@@ -130,6 +132,14 @@ def apply_group(spec, x: torch.Tensor,
     return launch(spec, x, valid)
 
 
+@functools.lru_cache(maxsize=None)
+def _check_conv(channels: int, taps: int, dil: int) -> None:
+    """Raise ValueError if no tile of the tap convolution takes the conv
+    (the shared memory of its window and weights does not depend on the
+    batch or the length)."""
+    tiling.tap_tile(1, 1, channels, taps, dil, 1)
+
+
 def launch(spec, x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """Kernel C on the card (no plain path); ``valid`` int32 [B], at most
     T (``apply_group`` clamps it)."""
@@ -141,6 +151,8 @@ def launch(spec, x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
         cuda.require(spec[name], name, dev)
     if spec["W"].shape[1:] != (c, c):
         raise ValueError(f"x has {c} channels, the spec {spec['W'].shape[1]}")
+    for _, taps, dil, *_ in spec["program"]:
+        _check_conv(c, taps, dil)
     valid = valid.contiguous()
     cuda.require(valid, "valid", dev, dtype=torch.int32)
     max_units = max(len(br) for br in spec["branches"])
@@ -159,16 +171,18 @@ def launch(spec, x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
                        [cuda.c_ptr] * 5 + [cuda.c_int] * 2 + [cuda.c_ptr] * 6
                        + [cuda.c_int] * 2 + [cuda.c_float, cuda.c_ptr]
                        + [cuda.c_int] * 3 + [cuda.c_float, cuda.c_ptr])
-    status = fn(cuda.ptr(x), cuda.ptr(valid), cuda.ptr(spec["W"]),
-                cuda.ptr(spec["b"]),
-                ctypes.cast(spec["program_c"], ctypes.c_void_p),
-                len(spec["program"]), len(spec["branches"]),
-                cuda.ptr(ping), cuda.ptr(pong), cuda.ptr(tmp), cuda.ptr(acc),
-                cuda.ptr(spec.get("postW") if has_post else None),
-                cuda.ptr(spec.get("postB") if has_post else None),
-                spec["postW"].shape[0] if has_post else 0,
-                spec.get("post_pad", 0), spec.get("post_slope", 0.0),
-                cuda.ptr(audio), b, t, c, spec["slope"], cuda.stream_of(x))
+    with torch.cuda.device(dev):
+        status = fn(cuda.ptr(x), cuda.ptr(valid), cuda.ptr(spec["W"]),
+                    cuda.ptr(spec["b"]),
+                    ctypes.cast(spec["program_c"], ctypes.c_void_p),
+                    len(spec["program"]), len(spec["branches"]),
+                    cuda.ptr(ping), cuda.ptr(pong), cuda.ptr(tmp),
+                    cuda.ptr(acc),
+                    cuda.ptr(spec.get("postW") if has_post else None),
+                    cuda.ptr(spec.get("postB") if has_post else None),
+                    spec["postW"].shape[0] if has_post else 0,
+                    spec.get("post_pad", 0), spec.get("post_slope", 0.0),
+                    cuda.ptr(audio), b, t, c, spec["slope"], cuda.stream_of(x))
     cuda.check(LIBRARY, status, "fused_stage_group")
     launches += 1
     return audio if has_post else acc

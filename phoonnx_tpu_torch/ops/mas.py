@@ -104,9 +104,10 @@ def launch(value: Tensor, y_lens: Tensor, x_lens: Tensor) -> Tensor:
     scores = torch.empty_like(value)  # the forward DP's rows, for the backtrack
     fn = cuda.function(LIBRARY, "mas_path",
                        [cuda.c_ptr] * 5 + [cuda.c_int] * 3 + [cuda.c_ptr])
-    status = fn(cuda.ptr(value), cuda.ptr(y_lens), cuda.ptr(x_lens),
-                cuda.ptr(path), cuda.ptr(scores), b, t_y, t_x,
-                cuda.stream_of(value))
+    with torch.cuda.device(dev):
+        status = fn(cuda.ptr(value), cuda.ptr(y_lens), cuda.ptr(x_lens),
+                    cuda.ptr(path), cuda.ptr(scores), b, t_y, t_x,
+                    cuda.stream_of(value))
     cuda.check(LIBRARY, status, "mas_path")
     launches += 1
     return path

@@ -1,15 +1,21 @@
-"""Work partition of the persistent kernels A and B (``csrc/persist.cuh``).
+"""Work partition of the port's hand-written kernels, on the host side.
 
-Each kernel is one cooperative launch whose blocks stride over a list of
-output tiles in every phase. This module holds the host's side of that
-partition: the tile shape (mirroring the header's constants), the grid
-size, the split-K factors of kernel A's narrow products, the order in
-which the kernel lists a phase's tiles (:func:`work_items`, the formula of
-``persist.cuh``'s ``decode``) and the blocks that take them
-(:func:`first_item`). The tests check on the CPU that the tiles of every
-phase cover each output element once, or once per split-K part whose
-slab ranges partition the reduction, and that each tile goes to one
-block.
+Kernels A and B (``csrc/persist.cuh``) are each one cooperative launch
+whose blocks stride over a list of output tiles in every phase. This
+module holds the host's side of that partition: the tile shape
+(mirroring the header's constants), the grid size, the split-K factors of
+kernel A's narrow products, the order in which the kernel lists a phase's
+tiles (:func:`work_items`, the formula of ``persist.cuh``'s ``decode``)
+and the blocks that take them (:func:`first_item`).
+
+Kernel C's tap convolution (``csrc/tapconv.cuh``) launches one grid a
+conv; :func:`tap_tile` is the tile rule its C side mirrors
+(``tap_tile``), and :func:`tap_blocks` the output each block of that
+grid owns.
+
+The tests check on the CPU that the tiles of every phase or grid cover
+each output element once (or once per split-K part whose slab ranges
+partition the reduction), and that each tile goes to one block.
 """
 
 from typing import Iterator, NamedTuple, Tuple
@@ -103,3 +109,108 @@ def work_items(batch: int, t: int, n: int, slabs: int, splits: int = 1,
         yield (b, range(tm * TILE_M, min(t, (tm + 1) * TILE_M)),
                range(tn * TILE_N, min(n, (tn + 1) * TILE_N)),
                range(q0, min(slabs, q0 + per)))
+
+
+# tapconv.cuh: a warp multiplies TAP_WARP_ROWS rows; slabs ring through
+# TAP_STAGES stages; a block may use TAP_SMEM_LIMIT bytes of shared memory
+# and a slab of 16 channels is taken while the ring fits TAP_SMEM_TARGET
+# (four blocks an SM); a tile is as large as still gives every SM
+# TAP_MIN_BLOCKS_PER_SM blocks
+TAP_WARP_ROWS = 32
+TAP_STAGES = 2
+TAP_SMEM_LIMIT = 227 * 1024
+TAP_SMEM_TARGET = TAP_SMEM_LIMIT // 4
+TAP_MIN_BLOCKS_PER_SM = 2
+# (rows, columns, warp columns) per output-width class, largest first
+TAP_TILES = {
+    64: ((64, 64, 32), (32, 64, 32), (32, 32, 16)),
+    32: ((128, 32, 32), (64, 32, 32), (32, 32, 16)),
+    16: ((128, 16, 16), (64, 16, 16), (32, 16, 16)),
+}
+
+
+class TapTile(NamedTuple):
+    bm: int  # output rows of a block
+    bn: int  # output columns of a block
+    wn: int  # output columns of a warp (which takes TAP_WARP_ROWS rows)
+    bk: int  # input channels of a slab
+    smem: int  # dynamic shared memory of a block, bytes
+
+    @property
+    def threads(self) -> int:
+        return (self.bm // TAP_WARP_ROWS) * (self.bn // self.wn) * 32
+
+
+def tap_smem_bytes(bm: int, bn: int, bk: int, taps: int, dil: int) -> int:
+    """The ring of (window, weights) slabs and the window's lo half."""
+    win = (bm + (taps - 1) * dil) * (bk + 4)
+    wts = taps * bk * (bn + 8)
+    return 4 * ((TAP_STAGES + 1) * win + TAP_STAGES * wts)
+
+
+def tap_class(n: int) -> int:
+    """The output-width class of a conv with n output channels."""
+    padded = cdiv(n, 16) * 16
+    return 64 if padded >= 64 else 32 if padded >= 32 else 16
+
+
+def tap_tile(batch: int, t: int, n: int, taps: int, dil: int,
+             sms: int) -> TapTile:
+    """The tile of a conv of `taps` taps at dilation `dil` over [batch, t]
+    rows and n channels in and out, on a card of `sms` SMs: the first
+    candidate of its class whose grid gives every SM
+    TAP_MIN_BLOCKS_PER_SM blocks (else the smallest); 16-channel slabs
+    where n > 8 and the ring fits TAP_SMEM_TARGET, else 8; a smaller tile
+    while the ring exceeds TAP_SMEM_LIMIT. Raises ValueError if none
+    fits."""
+    tiles = TAP_TILES[tap_class(n)]
+    pick = len(tiles) - 1
+    for i, (bm, bn, _) in enumerate(tiles):
+        if batch * cdiv(t, bm) * cdiv(n, bn) >= TAP_MIN_BLOCKS_PER_SM * sms:
+            pick = i
+            break
+    for bm, bn, wn in tiles[pick:]:
+        deep = tap_smem_bytes(bm, bn, 16, taps, dil)
+        if n > 8 and deep <= TAP_SMEM_TARGET:
+            return TapTile(bm, bn, wn, 16, deep)
+        shallow = tap_smem_bytes(bm, bn, 8, taps, dil)
+        if shallow <= TAP_SMEM_LIMIT:
+            return TapTile(bm, bn, wn, 8, shallow)
+    bm, bn, _ = tiles[-1]
+    raise ValueError(
+        f"kernel C cannot take a conv of {taps} taps at dilation {dil} over "
+        f"{n} channels: its smallest tile ({bm} x {bn}, 8-channel slabs) "
+        f"stages a window of {bm + (taps - 1) * dil} rows and needs "
+        f"{tap_smem_bytes(bm, bn, 8, taps, dil)} B of shared memory; a "
+        f"block gets {TAP_SMEM_LIMIT}")
+
+
+def tap_blocks(tile: TapTile, batch: int, t: int,
+               n: int) -> Iterator[Tuple[int, range, range]]:
+    """The output of each block of a tap conv's grid (x: row tile, y:
+    column tile, z: batch element): (b, rows, columns)."""
+    for b in range(batch):
+        for y in range(cdiv(n, tile.bn)):
+            for x in range(cdiv(t, tile.bm)):
+                yield (b, range(x * tile.bm, min(t, (x + 1) * tile.bm)),
+                       range(y * tile.bn, min(n, (y + 1) * tile.bn)))
+
+
+def tap_fragment_cells(tile: TapTile) -> Iterator[Tuple[int, int, int]]:
+    """(thread, row, column) within a block's tile of each accumulator
+    element, as the kernel's epilogue stores it: warp w takes rows
+    (w // warps_n) * TAP_WARP_ROWS and columns (w % warps_n) * wn; in an
+    m16n8 fragment, lane l holds rows l // 4 and l // 4 + 8, columns
+    2 * (l % 4) and the next."""
+    warps_n = tile.bn // tile.wn
+    for tid in range(tile.threads):
+        warp, lane = divmod(tid, 32)
+        g, q = divmod(lane, 4)
+        wm0 = (warp // warps_n) * TAP_WARP_ROWS
+        wn0 = (warp % warps_n) * tile.wn
+        for mt in range(TAP_WARP_ROWS // 16):
+            for h in range(2):
+                for nt in range(tile.wn // 8):
+                    for e in range(2):
+                        yield (tid, wm0 + mt * 16 + g + 8 * h,
+                               wn0 + nt * 8 + 2 * q + e)

@@ -31,8 +31,8 @@ import torch
 from phoonnx_tpu_torch.infer.engine import resolve_device
 from phoonnx_tpu_torch.models.vits.model import VitsHParams
 from phoonnx_tpu_torch.train import checkpoint as ckpt
-from phoonnx_tpu_torch.train.dataset import (BucketedLoader, load_dataset,
-                                             train_val_split)
+from phoonnx_tpu_torch.train.dataset import (BucketedLoader, Utterance,
+                                             load_dataset, train_val_split)
 from phoonnx_tpu_torch.train.step import (METRICS, TrainConfig, TrainState,
                                           batch_to_device, init_train_state,
                                           train_step)
@@ -86,13 +86,15 @@ def evaluate(state: TrainState, loader: BucketedLoader, hp: VitsHParams,
 class TrainRun:
     """What :func:`run_training` returns: the final state, one record per
     step (epoch, step, host ms of the step, the losses), the validation
-    losses per epoch and the last checkpoint written."""
+    losses per epoch, the last checkpoint written and the held-out test
+    utterances (neither trained nor validated on)."""
 
     state: TrainState
     hp: VitsHParams
     steps: List[dict] = field(default_factory=list)
     val_losses: List[float] = field(default_factory=list)
     checkpoint: Optional[str] = None
+    test_utterances: List[Utterance] = field(default_factory=list)
 
 
 def run_training(
@@ -102,6 +104,7 @@ def run_training(
     max_epochs: int = 1000,
     checkpoint_epochs: int = 1,
     validation_split: float = 0.1,
+    num_test_examples: int = 5,
     max_phoneme_ids: Optional[int] = None,
     learning_rate: float = 2e-4,
     grad_clip: Optional[float] = None,
@@ -124,9 +127,8 @@ def run_training(
 
     utterances = load_dataset([dataset_path / "dataset.jsonl"],
                               max_phoneme_ids=max_phoneme_ids)
-    # no held-out test utterances: their progress audio is not ported yet
-    train_utts, val_utts, _ = train_val_split(utterances, validation_split,
-                                              0, seed=seed)
+    train_utts, val_utts, test_utts = train_val_split(
+        utterances, validation_split, num_test_examples, seed=seed)
     LOG.info("train=%d val=%d on %s", len(train_utts), len(val_utts), dev)
 
     make_loader = partial(
@@ -149,7 +151,7 @@ def run_training(
         LOG.info("Resumed from %s at step %d", resume_from_checkpoint,
                  state.step)
 
-    run = TrainRun(state=state, hp=hp)
+    run = TrainRun(state=state, hp=hp, test_utterances=test_utts)
     # checkpoints are written at epoch boundaries, so a restored step
     # lands on one; epoch-indexed shuffles and step-indexed generators make
     # the continuation the uninterrupted run
@@ -195,6 +197,7 @@ def main(argv=None) -> None:
     parser.add_argument("--max-epochs", default=1000, type=int)
     parser.add_argument("--checkpoint-epochs", default=1, type=int)
     parser.add_argument("--validation-split", default=0.1, type=float)
+    parser.add_argument("--num-test-examples", default=5, type=int)
     parser.add_argument("--max-phoneme-ids", default=None, type=int)
     parser.add_argument("--learning-rate", default=2e-4, type=float)
     parser.add_argument("--grad-clip", default=None, type=float)

@@ -11,6 +11,8 @@ The shapes are small; ``chip_smoke.py`` runs the same comparisons at the
 medium preset's shapes and drives the whole synthesis path.
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -234,3 +236,136 @@ def test_missing_specs_raise_on_the_card(device, params):
                                 mask, reverse=True)
     with pytest.raises(ValueError, match="kernel C"):
         hifigan.generator(dec, torch.zeros(1, 8, 192, device=device))
+
+
+# ---- kernel C's 3xTF32 tap convolution -------------------------------------
+
+
+def _stage_spec(device, quality, stage, **overrides):
+    hp = model.VitsHParams.preset(quality, n_layers=1, **overrides)
+    dec = model.params_to_device(
+        model.random_params(hp, torch.Generator().manual_seed(4))["dec"],
+        device)
+    nk = dec["num_kernels"]
+    return fused_stage.build_group_spec(
+        dec["resblocks"][stage * nk:(stage + 1) * nk], modules.LRELU_SLOPE)
+
+
+def _hold_stage(spec, x, valid):
+    got = fused_stage.apply_group(spec, x, valid=valid)
+    want = fused_stage.plain(spec, x, valid)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape
+    assert bool(torch.isfinite(got).all())
+    assert (got - want).abs().max().item() < TOL
+    return got
+
+
+def test_high_first_stage_kernel(device):
+    """high's 256-channel first stage, resblock "1": kernels up to 11 at
+    dilation 5, the widest window of the presets (BM + 50 rows)."""
+    spec = _stage_spec(device, "high", 0)
+    assert spec["W"].shape[1] == 256 and spec["W"].shape[0] == 126
+    x = torch.randn(2, 517, 256, device=device) * 0.5
+    valid = torch.tensor([517, 333], dtype=torch.int32, device=device)
+    got = _hold_stage(spec, x, valid)
+    assert (got[1, 333:] == 0).all()
+
+
+# 20 and 13 channels (stage 0 of initial widths 40 and 26) and their
+# second stages (10, 6): no multiple of 8 pads the reduction with zeros
+# and guards the stores; 13 and 6 take 4-byte copies
+@pytest.mark.parametrize("initial,stage", [(40, 0), (40, 1), (26, 0),
+                                           (26, 1)])
+def test_stage_kernel_odd_channels(device, initial, stage):
+    spec = _stage_spec(device, "micro", stage,
+                       upsample_initial_channel=initial,
+                       resblock_kernel_sizes=(3, 7),
+                       resblock_dilation_sizes=((1, 2), (3, 12)))
+    c = initial // 2 ** (stage + 1)
+    assert spec["W"].shape[1] == c
+    x = torch.randn(2, 203, c, device=device) * 0.5
+    _hold_stage(spec, x, torch.tensor([203, 97], dtype=torch.int32,
+                                      device=device))
+
+
+# T = 1, and T shorter than the largest halo of medium's stage 0 (k 7 at
+# dilation 12: 72 rows) and of the tail
+@pytest.mark.parametrize("t", [1, 5, 40, 71])
+def test_stage_kernel_shorter_than_its_halo(device, params, t):
+    for spec in (params["dec"]["fused_stages"][0],
+                 params["dec"]["fused_stages"][2]):
+        c = spec["W"].shape[1]
+        x = torch.randn(2, t, c, device=device) * 0.5
+        _hold_stage(spec, x, torch.tensor([t, max(t // 2, 1)],
+                                          dtype=torch.int32, device=device))
+
+
+def test_stage_kernel_repeats_bit_identical(device, params):
+    """No split-K, no atomics: two calls on one input are equal bit for
+    bit, with and without the tail."""
+    for spec in params["dec"]["fused_stages"]:
+        c = spec["W"].shape[1]
+        x = torch.randn(1, 777, c, device=device) * 0.5
+        valid = torch.tensor([700], dtype=torch.int32, device=device)
+        first = fused_stage.apply_group(spec, x, valid)
+        second = fused_stage.apply_group(spec, x, valid)
+        torch.cuda.synchronize()
+        assert torch.equal(first, second)
+
+
+def test_tap_tile_matches_the_host_rule(device):
+    """tapconv.cuh's tile choice is tiling.tap_tile: every preset conv
+    and odd shapes, at this card's SM count and at 132."""
+    from phoonnx_tpu_torch import cuda, tiling
+
+    from tests.test_torch_tapconv_tiling import QUALITIES, distinct
+
+    fn = cuda.function(fused_stage.LIBRARY, "fused_stage_tile",
+                       [cuda.c_int] * 6 + [cuda.c_ptr])
+    own = torch.cuda.get_device_properties(device).multi_processor_count
+    shapes = {s for q in QUALITIES for s in distinct(q)}
+    shapes |= {(1, 20, 7, 12), (1001, 13, 3, 1), (257, 48, 11, 5),
+               (700, 100, 5, 2)}
+    out = (cuda.c_int * 5)()
+    for t, c, k, d in sorted(shapes):
+        for batch in (1, 3):
+            for sms in (own, 132):
+                assert fn(batch, t, c, k, d, sms,
+                          ctypes.cast(out, cuda.c_ptr)) == 0
+                want = tiling.tap_tile(batch, t, c, k, d, sms)
+                assert tuple(out) == tuple(want), (t, c, k, d, batch, sms)
+    assert fn(1, 100, 64, 200, 20, own, ctypes.cast(out, cuda.c_ptr)) != 0
+    spec = _stage_spec(device, "micro", 0, resblock_kernel_sizes=(200,),
+                       resblock_dilation_sizes=((20,),))
+    with pytest.raises(ValueError, match="shared memory"):
+        fused_stage.apply_group(spec, torch.zeros(1, 50, 16, device=device))
+
+
+def test_kernels_launch_on_the_tensors_device(device, params):
+    """With two cards, every kernel runs on its tensors' card while
+    another is current. The one-card chip run cannot show this."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two GPUs")
+    other = torch.device("cuda", 1)
+    moved = model.attach_fused_specs(model.params_to_device(
+        {k: v for k, v in params.items()}, other))
+    with torch.cuda.device(0):
+        spec = moved["dec"]["fused_stages"][1]
+        x = torch.randn(2, 300, 64, device=other) * 0.5
+        _hold_stage(spec, x, torch.tensor([300, 100], dtype=torch.int32,
+                                          device=other))
+        mask = _mask([40, 23], 40, other)
+        x = torch.randn(2, 40, 192, device=other) * mask
+        enc = moved["enc_p"]["encoder"]["fused"]
+        assert (fused_encoder.apply(enc, x, mask)
+                - fused_encoder.plain(enc, x, mask)).abs().max() < TOL
+        flow = moved["flow"]["fused_rev"]
+        assert (fused_flow.apply(flow, x, mask)
+                - fused_flow.plain(flow, x, mask)).abs().max() < TOL
+        value = torch.randn(2, 30, 12, device=other)
+        lens = torch.tensor([30, 20], dtype=torch.int32, device=other)
+        xl = torch.tensor([12, 9], dtype=torch.int32, device=other)
+        assert torch.equal(mas.launch(value, lens, xl),
+                           mas.maximum_path_plain(value, lens, xl))
+        torch.cuda.synchronize(other)

@@ -3,7 +3,8 @@
 ``run_training(device="cpu")`` at the ``micro`` preset, on a dataset dir
 written by ``chip_smoke.write_dataset`` (the writer the card run uses, at
 shorter lengths): two steps of one epoch write a checkpoint, log finite
-losses and move the parameters. Without a GPU the default device raises.
+losses and move the parameters. The split holds out the JAX trainer's 5
+test utterances first. Without a GPU the default device raises.
 """
 
 import logging
@@ -13,8 +14,10 @@ import pytest
 import torch
 
 import chip_smoke
+from phoonnx_tpu.train import dataset as jax_dataset
 from phoonnx_tpu_torch.models.vits.model import VitsHParams
-from phoonnx_tpu_torch.train import checkpoint, step, trainer
+from phoonnx_tpu_torch.train import checkpoint, dataset as port_dataset
+from phoonnx_tpu_torch.train import step, trainer
 
 from tests.test_torch_train_forward import one_torch_thread  # noqa: F401
 
@@ -25,9 +28,10 @@ KW = dict(quality="micro", batch_size=2, max_epochs=1, validation_split=0.2,
 
 @pytest.fixture(scope="module")
 def dataset(tmp_path_factory):
+    # 11 utterances: 5 held out for tests, 2 validation, 4 train (2 steps)
     hp = VitsHParams.preset("micro", n_vocab=40)
     return chip_smoke.write_dataset(torch, tmp_path_factory.mktemp("data"),
-                                    hp, 5, seed=1, seconds=(0.05, 0.12))
+                                    hp, 11, seed=1, seconds=(0.05, 0.12))
 
 
 def test_run_training_on_cpu(dataset, caplog):
@@ -57,6 +61,34 @@ def test_run_training_on_cpu(dataset, caplog):
     for a, b in zip(now, step.leaves(fresh.params_g)
                     + step.leaves(fresh.params_d)):
         assert torch.equal(a, b)
+
+
+def test_split_holds_out_the_jax_test_utterances(dataset, monkeypatch):
+    """run_training's split is train_val_split(..., 5, seed), the JAX
+    trainer's default, and equals the JAX package's split of the same
+    list."""
+    seen = []
+
+    def spy(*args, **kwargs):
+        seen.append((args, kwargs))
+        return port_dataset.train_val_split(*args, **kwargs)
+
+    monkeypatch.setattr(trainer, "train_val_split", spy)
+    run = trainer.run_training(str(dataset), **dict(KW, max_epochs=0))
+    utts = port_dataset.load_dataset([dataset / "dataset.jsonl"])
+    port = port_dataset.train_val_split(utts, 0.2, 5, seed=KW["seed"])
+    jax = jax_dataset.train_val_split(utts, 0.2, 5, seed=KW["seed"])
+    assert len(seen) == 1 and seen[0][0][2] == 5
+    assert [len(part) for part in port] == [4, 2, 5]
+    for ours, theirs in zip(port, jax):
+        assert [u.audio_norm_path for u in ours] == [
+            u.audio_norm_path for u in theirs]
+    assert [u.audio_norm_path for u in run.test_utterances] == [
+        u.audio_norm_path for u in port[2]]
+    trainer.main(["--dataset-dir", str(dataset), "--quality", "micro",
+                  "--max-epochs", "0", "--device", "cpu",
+                  "--num-test-examples", "3"])
+    assert seen[-1][0][2] == 3
 
 
 def test_resume_continues_from_the_checkpoint(dataset):
