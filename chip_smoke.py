@@ -23,10 +23,16 @@ another sm_90a card) and the CUDA toolkit. The script
    with the cost of one grid barrier; profiles kernel C conv by conv
    (``conv:`` lines: each tap conv's (C, k, dilation), device time,
    FLOPs and TFLOP/s beside one cuDNN ``conv1d`` of the same shape, a
-   yardstick the port never calls), and with ``--parent DIR`` (another
-   checkout, e.g. the parent commit unpacked by ``git archive``) builds
-   that checkout's kernel C and prints its times beside, and the three
-   stages' time in turn (parent, this, this, parent);
+   yardstick the port never calls); holds kernel D bit for bit at the
+   edge shapes of its tiling (``ops/mas.EDGES``) and at the medium
+   training shape, counts its device kernels in one call and prints its
+   phases from device-clock stamps (``phases: kernel D``: forward,
+   backtrack, path write, and ns a row); and with ``--parent DIR``
+   (another checkout, e.g. the parent commit unpacked by ``git
+   archive``) builds that checkout's kernels C and D and prints their
+   times beside, C's three stages and D in turn (parent, this, this,
+   parent), D through the parent's own wrapper and held ``torch.equal``
+   to the parent's;
 3. serving: writes a medium voice (random weights from ``--seed``) with
    the port's ONNX writer, loads it with ``TTSVoice.load`` on the default
    device and answers three single requests and one ragged batch of four,
@@ -371,14 +377,14 @@ def stage_library(port_cuda, fn):
         port_cuda._FUNCS[key] = own
 
 
-def build_parent_stage(port_cuda, parent: Path):
-    """Start nvcc on another checkout's ``csrc/fused_stage.cu`` (the
-    parent commit's kernel C), with the port's flags; returns a function
-    that waits for it and loads its ``fused_stage_group``."""
-    src = parent / "phoonnx_tpu_torch" / "csrc" / "fused_stage.cu"
+def build_parent(port_cuda, parent: Path, name: str):
+    """Start nvcc on another checkout's ``csrc/<name>.cu`` (the parent
+    commit's kernel), with the port's flags, beside the port's own build;
+    returns a function that waits for it and loads the library."""
+    src = parent / "phoonnx_tpu_torch" / "csrc" / f"{name}.cu"
     if not src.is_file():
         fail(f"--parent: {src} does not exist")
-    out = ROOT / "build" / "chip_smoke" / "parent" / "libfused_stage.so"
+    out = ROOT / "build" / "chip_smoke" / "parent" / f"lib{name}.so"
     out.parent.mkdir(parents=True, exist_ok=True)
     proc = subprocess.Popen([port_cuda._nvcc(), *port_cuda.NVCC_FLAGS, "-o",
                              str(out), str(src)], stdout=subprocess.PIPE,
@@ -386,15 +392,54 @@ def build_parent_stage(port_cuda, parent: Path):
 
     def load():
         log, _ = proc.communicate()
-        check(proc.returncode == 0, "--parent: nvcc failed:\n"
+        check(proc.returncode == 0, f"--parent: nvcc failed on {name}:\n"
               + log.decode(errors="replace"))
-        fn = ctypes.CDLL(str(out)).fused_stage_group
-        fn.argtypes = port_cuda._FUNCS[
-            ("fused_stage", "fused_stage_group")].argtypes
-        fn.restype = ctypes.c_int
-        return fn
+        return ctypes.CDLL(str(out))
 
     return load
+
+
+def parent_stage(port_cuda, lib):
+    """The parent's ``fused_stage_group``, typed as the port's."""
+    fn = lib.fused_stage_group
+    fn.argtypes = port_cuda._FUNCS[
+        ("fused_stage", "fused_stage_group")].argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
+class ParentCuda:
+    """The port's ``cuda`` module with its C entry points taken from
+    another checkout's build (``lib``), each typed as that checkout's own
+    wrapper declares it."""
+
+    def __init__(self, port_cuda, lib):
+        self._port = port_cuda
+        self._lib = lib
+
+    def __getattr__(self, name):
+        return getattr(self._port, name)
+
+    def function(self, library, symbol, argtypes, restype=ctypes.c_int):
+        fn = getattr(self._lib, symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = restype
+        return fn
+
+
+def parent_mas(port_cuda, parent: Path, lib):
+    """The parent checkout's kernel D as a function of (value, y_lens,
+    x_lens): that checkout's own ``ops/mas.py`` ``launch``, calling its
+    build of ``csrc/mas.cu`` (``lib``), so the call follows whatever C
+    interface the parent has."""
+    import importlib.util
+
+    src = parent / "phoonnx_tpu_torch" / "ops" / "mas.py"
+    spec = importlib.util.spec_from_file_location("parent_ops_mas", src)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    module.cuda = ParentCuda(port_cuda, lib)
+    return module.launch
 
 
 def stage_conv_profile(torch, port_cuda, stages, rates, dev, seed,
@@ -882,30 +927,91 @@ def mas_inputs(torch, dev, seed, variants=3):
     return inputs
 
 
-def mas_phase(torch, dev, seed):
-    """Kernel D against its plain version, bit for bit, at [16, 832, 320]."""
+def mas_case(torch, dev, gen, lengths):
+    """Kernel D's inputs for (y_len, x_len) pairs, integer scores (ties)
+    in the first element."""
     from phoonnx_tpu_torch.ops import mas
 
+    t_y = max(y for y, _ in lengths)
+    t_x = max(x for _, x in lengths)
+    neg_cent = torch.randn(len(lengths), t_y, t_x, device=dev, generator=gen)
+    neg_cent[0] = torch.round(neg_cent[0] * 2)
+    mask = torch.zeros_like(neg_cent)
+    for i, (y, x) in enumerate(lengths):
+        mask[i, :y, :x] = 1
+    return mas.lengths_and_value(neg_cent, mask)
+
+
+def mas_equal(torch, label, got, want):
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), f"kernel D {label} differs from its plain "
+          f"version in {int((got != want).sum())} cells")
+
+
+def mas_phase(torch, dev, seed, parent=None):
+    """Kernel D against its plain version, bit for bit, at the edge shapes
+    of its tiling and at [16, 832, 320]; the device kernels in one call,
+    its phases and, with ``parent`` (the parent checkout's kernel D), the
+    parent's time in turn."""
+    from phoonnx_tpu_torch.ops import mas
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 7)
+    for lengths in mas.EDGES:
+        value, y_lens, x_lens = mas_case(torch, dev, gen, lengths)
+        mas_equal(torch, f"at {lengths}", mas.launch(value, y_lens, x_lens),
+                  mas.maximum_path_plain(value, y_lens, x_lens))
+    print(f"kernel D: torch.equal to plain at {len(mas.EDGES)} edge shapes "
+          f"{mas.EDGES}", flush=True)
+
     inputs = mas_inputs(torch, dev, seed)
+    b, t_y, t_x = MAS_SHAPE
     for value, y_lens, x_lens in inputs:
         got = mas.launch(value, y_lens, x_lens)
-        want = mas.maximum_path_plain(value, y_lens, x_lens)
-        torch.cuda.synchronize()
-        check(torch.equal(got, want), "kernel D differs from its plain "
-              f"version in {int((got != want).sum())} cells")
+        mas_equal(torch, f"at {list(MAS_SHAPE)}", got,
+                  mas.maximum_path_plain(value, y_lens, x_lens))
         rows = got.sum(dim=2)
         check(bool(((rows == 1) | (rows == 0)).all()),
               "kernel D marked more than one phoneme in a frame")
+    per_call = kernels_in_call(torch, lambda: mas.launch(*inputs[0]), "D",
+                               "mas_kernel")
     k_ms = median_ms(torch, mas.launch, inputs)
     p_ms = median_ms(torch, mas.maximum_path_plain, inputs)
-    b, t_y, t_x = MAS_SHAPE
+
+    names = mas.phases()
+    stamps = torch.zeros(len(names) + 1, dtype=torch.int64, device=dev)
+    runs = []
+    for _ in range(REPS + 1):
+        mas.launch(*inputs[0], stamps=stamps)
+        torch.cuda.synchronize()
+        runs.append(stamps.diff().cpu().tolist())
+    per_phase = [statistics.median(r[i] for r in runs[1:]) / 1e6
+                 for i in range(len(names))]
+    rows0 = int(inputs[0][1][0])
+    warps, cells, chunk = mas.plan(t_x)
+    print(f"phases: kernel D: block 0 ({rows0} rows, {warps} warp(s) of "
+          f"{cells} cells, chunks of {chunk} rows), "
+          + ", ".join(f"{n} {ms:.4f} ms" for n, ms in zip(names, per_phase))
+          + f"; forward {per_phase[0] * 1e6 / rows0:.1f} ns a row, backtrack "
+          f"{per_phase[1] * 1e6 / rows0:.1f} ns a row", flush=True)
+
+    if parent is not None:
+        for value, y_lens, x_lens in inputs:
+            mas_equal(torch, "against the parent's kernel",
+                      mas.launch(value, y_lens, x_lens),
+                      parent(value, y_lens, x_lens))
+        turns = [("parent", parent), ("this", mas.launch),
+                 ("this", mas.launch), ("parent", parent)]
+        times = [(who, median_ms(torch, fn, inputs)) for who, fn in turns]
+        print("kernel D in turn: " + ", ".join(
+            f"{who} {ms:.4f} ms" for who, ms in times), flush=True)
+
     flops = 2.0 * b * t_y * t_x  # an add and a max per cell, full grid
     nbytes = 2.0 * b * t_y * t_x * 4 + 2 * b * 4  # scores in, path out
     b_ms, b_by = bound(flops, nbytes)
     print(f"kernel D B={b} T_y={t_y} T_x={t_x}: torch.equal to plain, "
           f"max_abs_err=0 kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
           f"bound_ms={b_ms:.5f} ({b_by}) flops={flops:.4e} "
-          f"bytes={nbytes:.4e}", flush=True)
+          f"bytes={nbytes:.4e} device_ops_per_call={per_call}", flush=True)
     return {"max_abs_err": 0.0, "ms": k_ms, "plain_ms": p_ms,
             "bound_ms": b_ms, "bound_by": b_by}
 
@@ -1176,8 +1282,9 @@ def main() -> None:
                         "~250-id request and of one medium training step")
     parser.add_argument("--parent", type=Path, default=None,
                         help="root of another checkout (the parent commit): "
-                        "build its kernel C and time it conv by conv, and "
-                        "the three stages whole, beside this one's")
+                        "build its kernels C and D and time them beside "
+                        "this one's (C conv by conv and its three stages "
+                        "whole, D at the medium training shape)")
     args = parser.parse_args()
     start = time.perf_counter()
 
@@ -1198,11 +1305,14 @@ def main() -> None:
     from phoonnx_tpu_torch import cuda as port_cuda
     from phoonnx_tpu_torch.models.vits import model as vits_model
 
-    parent = build_parent_stage(port_cuda, args.parent) if args.parent \
-        else None
+    parents = {name: build_parent(port_cuda, args.parent, name)
+               for name in ("fused_stage", "mas")} if args.parent else {}
     build_s = port_cuda.build()
     print(f"build: {len(port_cuda.LIBRARIES)} libraries from "
           f"phoonnx_tpu_torch/csrc in {build_s:.1f} s", flush=True)
+    # the parent's builds end before anything is measured: a profiler
+    # session taken while nvcc runs beside it can lose its device records
+    parents = {name: load() for name, load in parents.items()}
 
     dev = torch.device("cuda")
     hp, params, flow_g, gin = medium_params(torch, args.seed)
@@ -1217,9 +1327,13 @@ def main() -> None:
                             dev)
     stage_conv_profile(torch, port_cuda, on_card["dec"]["fused_stages"],
                        on_card["dec"]["upsample_rates"], dev, args.seed,
-                       parent=parent() if parent else None)
+                       parent=parent_stage(port_cuda, parents["fused_stage"])
+                       if parents else None)
     del on_card
-    results["D"] = mas_phase(torch, dev, args.seed)
+    results["D"] = mas_phase(
+        torch, dev, args.seed,
+        parent=parent_mas(port_cuda, args.parent, parents["mas"])
+        if parents else None)
 
     # serving: kernels A, B and C
     model_path, config_path = write_voice(

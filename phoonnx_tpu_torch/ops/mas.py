@@ -11,9 +11,14 @@ function does, then launches the kernel for a CUDA tensor or runs
 semantics bit for bit: a forward max-plus DP over spec frames on the full
 ``[T_y, T_x]`` grid (stay vs advance, the advance forced where x == y,
 ``-1e9`` as minus infinity), then a backtrack from ``x_len - 1`` that
-stays on a tie. :func:`maximum_path_numpy` is a copy of the JAX package's
-host oracle (the reference kernel's triangle loops), kept for the tests.
+stays on a tie. The kernel keeps one decision bit a cell instead of the
+scores; :func:`plan` is its tiling rule (warps and cells a lane for a
+row, rows of bits a backtrack chunk), shared with the C side, which
+checks it. :func:`maximum_path_numpy` is a copy of the JAX package's host
+oracle (the reference kernel's triangle loops), kept for the tests.
 """
+
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -27,6 +32,58 @@ NEG_INF = -1e9
 
 # Launches of the kernel (one per maximum_path on the card).
 launches = 0
+
+# The kernel's tiling limits (csrc/mas.cu): rows of up to FAST_WARPS
+# warps of FAST_CELLS cells a lane, wider ones on WIDE_CELLS cells a lane
+# on blocks of WIDE_WARPS; a backtrack chunk holds at most CHUNK_ROWS rows
+# and CHUNK_WORDS words of decision bits. Up to FAST_CELLS cells a lane a
+# row is split over as few warps as hold it: fewer cells a lane shorten a
+# row's chain, more warps add a barrier a row and more bits to stage.
+FAST_CELLS, FAST_WARPS = 4, 8
+WIDE_CELLS, WIDE_WARPS = 32, 32
+CHUNK_ROWS, CHUNK_WORDS = 128, 8192
+
+# The phases the kernel's stamps time, in order, on block 0.
+PHASES = ("forward", "backtrack", "path write")
+
+# (y_len, x_len) per batch element of the shapes that reach each branch
+# of the kernel's tiling, which the card tests and chip_smoke.py hold it
+# to its plain version at: ragged with x_len > y_len; T_y above 256 and
+# not a multiple of the ring (8 rows) or the backtrack chunk (128 rows
+# at one warp); T_y of 1 and 2; T_x of 1, 31, 32 and 33; rows of 5
+# warps; rows of 8 warps (T_x 1024, over 48 KB of shared memory, chunks
+# of 32 rows); and rows of the 32-cell build (T_x above 1024) on 2 and 5
+# warps, each path crossing its row's warps.
+EDGES = [[(96, 40), (50, 17), (30, 33)], [(300, 64)], [(77, 40)],
+         [(1, 5), (1, 1)], [(2, 2), (2, 7)], [(40, 1), (17, 1)],
+         [(70, 31)], [(70, 32)], [(70, 33), (50, 20)],
+         [(700, 600), (300, 550)], [(1100, 1024), (40, 700)],
+         [(1300, 1025), (200, 300)], [(4200, 4100), (100, 2000)]]
+
+
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def plan(t_x: int) -> Tuple[int, int, int]:
+    """(warps, cells, chunk) of kernel D for rows of ``t_x`` cells: the
+    warps that carry a row, the cells each lane holds (thread g the cells
+    ``g*cells .. g*cells + cells - 1``, whose decision bits are word g of
+    the row's ``warps * 32``), and the rows of bits the backtrack stages
+    at a time. Up to FAST_WARPS warps of at most FAST_CELLS cells a lane
+    (T_x <= 1024), else the 32-cell build. Raises ValueError for a row no
+    block holds."""
+    if not 1 <= t_x <= WIDE_WARPS * 32 * WIDE_CELLS:
+        raise ValueError(f"kernel D takes rows of 1 to "
+                         f"{WIDE_WARPS * 32 * WIDE_CELLS} cells; got "
+                         f"T_x={t_x}")
+    if t_x <= FAST_WARPS * 32 * FAST_CELLS:
+        warps = _ceil_div(t_x, 32 * FAST_CELLS)
+        cells = _ceil_div(t_x, 32 * warps)
+    else:
+        warps, cells = _ceil_div(t_x, 32 * WIDE_CELLS), WIDE_CELLS
+    chunk = max(1, min(CHUNK_ROWS, CHUNK_WORDS // (warps * 32)))
+    return warps, cells, chunk
 
 
 def lengths_and_value(neg_cent: Tensor, attn_mask: Tensor):
@@ -92,22 +149,37 @@ def maximum_path_plain(value: Tensor, y_lens: Tensor,
     return path
 
 
-def launch(value: Tensor, y_lens: Tensor, x_lens: Tensor) -> Tensor:
-    """Kernel D on the card (no plain path)."""
+def phases() -> list:
+    """The kernel's phases in order, as ``launch``'s stamps time them."""
+    return list(PHASES)
+
+
+def launch(value: Tensor, y_lens: Tensor, x_lens: Tensor,
+           stamps: Optional[Tensor] = None) -> Tensor:
+    """Kernel D on the card (no plain path). Allocates the path and the
+    decision bits, ``[B, T_y, warps * 32]`` int32 with :func:`plan`'s
+    warps (one bit a cell, a word a thread; no score scratch). With
+    ``stamps`` (int64, ``len(phases()) + 1`` on the card) the
+    kernel also writes the device clock (ns) at block 0's start and at
+    the end of each phase."""
     global launches
     b, t_y, t_x = value.shape
     dev = value.device
     cuda.require(value, "value", dev)
     cuda.require(y_lens, "y_lens", dev, torch.int32, (b,))
     cuda.require(x_lens, "x_lens", dev, torch.int32, (b,))
+    if stamps is not None:
+        cuda.require(stamps, "stamps", dev, torch.int64, (len(PHASES) + 1,))
+    n_warps, cells, chunk = plan(t_x)
     path = torch.empty_like(value)
-    scores = torch.empty_like(value)  # the forward DP's rows, for the backtrack
+    bits = torch.empty((b, t_y, n_warps * 32), dtype=torch.int32,
+                       device=dev)
     fn = cuda.function(LIBRARY, "mas_path",
-                       [cuda.c_ptr] * 5 + [cuda.c_int] * 3 + [cuda.c_ptr])
+                       [cuda.c_ptr] * 6 + [cuda.c_int] * 6 + [cuda.c_ptr])
     with torch.cuda.device(dev):
         status = fn(cuda.ptr(value), cuda.ptr(y_lens), cuda.ptr(x_lens),
-                    cuda.ptr(path), cuda.ptr(scores), b, t_y, t_x,
-                    cuda.stream_of(value))
+                    cuda.ptr(path), cuda.ptr(bits), cuda.ptr(stamps), b, t_y,
+                    t_x, n_warps, cells, chunk, cuda.stream_of(value))
     cuda.check(LIBRARY, status, "mas_path")
     launches += 1
     return path

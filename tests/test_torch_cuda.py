@@ -196,20 +196,25 @@ def test_resblock1_group_kernel(device):
     assert (got - want).abs().max().item() < TOL
 
 
-@pytest.mark.parametrize("lengths", [[(96, 40), (50, 17), (30, 33)],
-                                     [(300, 64)]])
-def test_mas_kernel(device, lengths):
-    """Kernel D is bit-identical to its plain version: ragged batches, an
-    x_len above y_len, ties from integer scores, T_y above 256."""
+def _mas_case(lengths, device, seed=5):
     b = len(lengths)
     t_y = max(y for y, _ in lengths)
     t_x = max(x for _, x in lengths)
-    gen = torch.Generator(device=device).manual_seed(5)
+    gen = torch.Generator(device=device).manual_seed(seed)
     neg_cent = torch.randn(b, t_y, t_x, device=device, generator=gen)
     neg_cent[0] = torch.round(neg_cent[0] * 2)
     mask = torch.zeros(b, t_y, t_x, device=device)
     for i, (y, x) in enumerate(lengths):
         mask[i, :y, :x] = 1
+    return neg_cent, mask
+
+
+@pytest.mark.parametrize("lengths", mas.EDGES)
+def test_mas_kernel(device, lengths):
+    """Kernel D is bit-identical to its plain version: ragged batches, an
+    x_len above y_len, ties from integer scores, T_y above 256, and the
+    edge shapes of its tiling."""
+    neg_cent, mask = _mas_case(lengths, device)
     value, y_lens, x_lens = mas.lengths_and_value(neg_cent, mask)
     before = mas.launches
     got = mas.maximum_path(neg_cent, mask)
@@ -219,6 +224,22 @@ def test_mas_kernel(device, lengths):
     assert torch.equal(got, want)
     assert torch.equal(mas.launch(value, y_lens, x_lens),
                        mas.maximum_path_plain(value, y_lens, x_lens))
+
+
+@pytest.mark.parametrize("t_x", [64, 200, 320, 500, 1024, 1100])
+def test_mas_kernel_warps(device, t_x):
+    """Every split of a row that ``mas.plan`` picks gives the plain
+    version's path, with the stamps in order: one warp, the named barrier
+    between 2, 3, 4 and 8 warps, and the 32-cell build (T_x above 1024)."""
+    neg_cent, mask = _mas_case([(400, t_x), (350, t_x - 20), (200, t_x)],
+                               device)
+    value, y_lens, x_lens = mas.lengths_and_value(neg_cent, mask)
+    stamps = torch.zeros(len(mas.phases()) + 1, dtype=torch.int64,
+                         device=device)
+    got = mas.launch(value, y_lens, x_lens, stamps=stamps)
+    torch.cuda.synchronize()
+    assert torch.equal(got, mas.maximum_path_plain(value, y_lens, x_lens))
+    assert bool((stamps.diff() >= 0).all()) and int(stamps[0]) > 0
 
 
 def test_missing_specs_raise_on_the_card(device, params):
