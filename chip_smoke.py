@@ -39,17 +39,26 @@ another sm_90a card) and the CUDA toolkit. The script
    checking finite audio of ``frames * 256`` samples, that the batch
    equals the single decodes on each utterance's span, that kernels A, B
    and C were launched on that path, and that the path agrees with the
-   plain PyTorch versions run on the host's CPU;
+   plain PyTorch versions run on the host's CPU; streams its ~241-id
+   request at chunk 128 and overlap 32 (``stream:`` lines: the stream
+   against the monolithic request, the time to the first chunk, of the
+   stream and of the monolithic request); then the same for a
+   ``medium-istft`` and a ``medium-mb-istft`` voice (``istft:`` lines),
+   with kernel C held against its plain version at their stage shapes
+   for 512 frames and the card's inverse STFT against the CPU's;
 4. training: writes a synthetic LJSpeech-style dataset (45 utterances of
    per-phoneme tones, 1.5 to 8 s, spectrograms from the port's STFT; 5
    held out for tests, 4 validation, 36 train) and runs
-   ``run_training(quality="medium", batch_size=16, max_epochs=1)`` on the
-   card, printing each step's time, losses and kernel D time, checking
-   finite losses, changed parameters, that kernel D was launched and A, B,
-   C were not, and that the checkpoint restores to equal tensors; then
-   the micro overfit recipe of the JAX package's tests (250 steps on two
-   learnable utterances) held to that test's margins;
-5. prints one ``{"kernels": [...]}`` line and, last, one
+   ``run_training(quality=..., batch_size=16, max_epochs=1)`` on the
+   card at ``medium`` and at ``medium-mb-istft``, printing each step's
+   time, losses and kernel D time, checking finite losses, changed
+   parameters, that kernel D was launched and A, B, C were not, and that
+   the checkpoint restores to equal tensors; then the micro overfit
+   recipe of the JAX package's tests (250 steps on two learnable
+   utterances) held to that test's margins;
+5. prints each path's launch counts (every path counted from 0), one
+   ``{"kernels": [...]}`` line whose launches sum the serving paths (A, B,
+   C) and the two training runs (D), and, last, one
    ``{"ok": true, "device": {...}}`` line.
 
 It exits non-zero, with no result line, when there is no CUDA device, when
@@ -66,6 +75,7 @@ import statistics
 import subprocess
 import sys
 import time
+from functools import partial
 from pathlib import Path
 
 import numpy as np
@@ -201,6 +211,90 @@ def stage_flops(spec, valid, channels) -> float:
 # ---------------------------------------------------------------------------
 
 
+def compare_kernel(torch, name, kernel_fn, plain_fn, inputs, flops, nbytes,
+                   case, tf32=False):
+    """The kernel against its plain version; a 3xTF32 kernel (tf32)
+    is bounded at that rate, with its f32 SIMT bound beside it."""
+    got = kernel_fn(*inputs[0])
+    want = plain_fn(*inputs[0])
+    torch.cuda.synchronize()
+    check(got.shape == want.shape,
+          f"{name} {case}: shape {tuple(got.shape)} vs "
+          f"{tuple(want.shape)}")
+    check(bool(torch.isfinite(got).all()), f"{name} {case}: non-finite")
+    err = (got - want).abs().max().item()
+    k_ms = median_ms(torch, kernel_fn, inputs)
+    p_ms = median_ms(torch, plain_fn, inputs)
+    f32_ms, f32_by = bound(flops, nbytes)
+    b_ms, b_by = (bound(TF32_PASSES * flops, nbytes, PEAK_TF32_FLOPS)
+                  if tf32 else (f32_ms, f32_by))
+    also = (f" (3xTF32 at {PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s) "
+            f"bound_f32_ms={f32_ms:.5f} ({f32_by})" if tf32 else
+            f" ({b_by})")
+    print(f"kernel {name} {case}: max_abs_err={err:.3e} "
+          f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
+          f"bound_ms={b_ms:.5f}{also} flops={flops:.4e} "
+          f"bytes={nbytes:.4e}", flush=True)
+    check(err <= KERNEL_TOL,
+          f"{name} {case}: kernel vs plain max-abs {err:.3e} > "
+          f"{KERNEL_TOL}")
+    return {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "bound_f32_ms": f32_ms,
+            "flops": flops, "bytes": nbytes}
+
+
+def compare_stages(torch, stages, rates, batch_frames, gen, dev,
+                   label=""):
+    """Kernel C against its plain version on each decoder stage of a
+    request of ``batch_frames`` latent frames (padded to the longest);
+    returns the sums over the stages (ms, plain ms, FLOPs, bytes) and the
+    largest error."""
+    from phoonnx_tpu_torch.models.vits import fused_stage
+
+    frames = max(batch_frames)
+    total = None
+    cum = 1
+    for i, spec in enumerate(stages):
+        cum *= rates[i]
+        ch = spec["W"].shape[1]
+        t = frames * cum
+        valid = [n * cum for n in batch_frames]
+        vt = torch.tensor(valid, dtype=torch.int32, device=dev)
+        inputs = [(torch.randn(len(valid), t, ch, device=dev,
+                               generator=gen) * 0.5, vt)
+                  for _ in range(3)]
+        out_ch = 1 if "postW" in spec else ch
+        nbytes = (len(valid) * t * (ch + out_ch) * 4 + tensor_bytes(spec)
+                  + 4 * len(valid))
+        res = compare_kernel(
+            torch, "C", lambda x, v, s=spec: fused_stage.apply_group(s, x, v),
+            lambda x, v, s=spec: fused_stage.plain(s, x, v), inputs,
+            stage_flops(spec, valid, ch), nbytes,
+            f"{label}stage {i} B={len(valid)} [{t}, {ch}] valid={valid}"
+            + (" +post" if "postW" in spec else ""), tf32=True)
+        if total is None:
+            total = dict(res)
+        else:
+            total["max_abs_err"] = max(total["max_abs_err"],
+                                       res["max_abs_err"])
+            for key in ("ms", "plain_ms", "flops", "bytes"):
+                total[key] += res[key]
+    return total
+
+
+def stage_total_line(total, what):
+    """Bound kernel C's summed stages at the 3xTF32 rate (f32 beside) and
+    print them."""
+    total["bound_ms"], total["bound_by"] = bound(
+        TF32_PASSES * total["flops"], total["bytes"], PEAK_TF32_FLOPS)
+    total["bound_f32_ms"] = bound(total["flops"], total["bytes"])[0]
+    print(f"kernel C {what}: kernel_ms={total['ms']:.4f} plain_ms="
+          f"{total['plain_ms']:.4f} bound_ms={total['bound_ms']:.5f} "
+          f"(3xTF32, {total['bound_by']}) bound_f32_ms="
+          f"{total['bound_f32_ms']:.5f} max_abs_err="
+          f"{total['max_abs_err']:.3e}", flush=True)
+
+
 def kernel_phases(torch, params, flow_g_params, high_stage0, seed, dev):
     """Each kernel against its plain version at the medium shapes, and
     kernel C also at the high preset's first stage (``high_stage0``)."""
@@ -215,36 +309,7 @@ def kernel_phases(torch, params, flow_g_params, high_stage0, seed, dev):
         lens = torch.tensor(lengths, device=dev)[:, None]
         return (pos < lens)[..., None].float()
 
-    def compare(name, kernel_fn, plain_fn, inputs, flops, nbytes, case,
-                tf32=False):
-        """The kernel against its plain version; a 3xTF32 kernel (tf32)
-        is bounded at that rate, with its f32 SIMT bound beside it."""
-        got = kernel_fn(*inputs[0])
-        want = plain_fn(*inputs[0])
-        torch.cuda.synchronize()
-        check(got.shape == want.shape,
-              f"{name} {case}: shape {tuple(got.shape)} vs "
-              f"{tuple(want.shape)}")
-        check(bool(torch.isfinite(got).all()), f"{name} {case}: non-finite")
-        err = (got - want).abs().max().item()
-        k_ms = median_ms(torch, kernel_fn, inputs)
-        p_ms = median_ms(torch, plain_fn, inputs)
-        f32_ms, f32_by = bound(flops, nbytes)
-        b_ms, b_by = (bound(TF32_PASSES * flops, nbytes, PEAK_TF32_FLOPS)
-                      if tf32 else (f32_ms, f32_by))
-        also = (f" (3xTF32 at {PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s) "
-                f"bound_f32_ms={f32_ms:.5f} ({f32_by})" if tf32 else
-                f" ({b_by})")
-        print(f"kernel {name} {case}: max_abs_err={err:.3e} "
-              f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
-              f"bound_ms={b_ms:.5f}{also} flops={flops:.4e} "
-              f"bytes={nbytes:.4e}", flush=True)
-        check(err <= KERNEL_TOL,
-              f"{name} {case}: kernel vs plain max-abs {err:.3e} > "
-              f"{KERNEL_TOL}")
-        return {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
-                "bound_ms": b_ms, "bound_by": b_by, "bound_f32_ms": f32_ms,
-                "flops": flops, "bytes": nbytes}
+    compare = partial(compare_kernel, torch)
 
     # --- A: the text-encoder stack, T_x = 128, and a long ragged pair ---
     enc_spec = params["enc_p"]["encoder"]["fused"]
@@ -297,47 +362,13 @@ def kernel_phases(torch, params, flow_g_params, high_stage0, seed, dev):
             phase_times(torch, fused_flow, spec, inputs[0], "B")
 
     # --- C: the three decoder stages at 512 frames, last with its tail ---
-    frames = 512
     stages = params["dec"]["fused_stages"]
     rates = params["dec"]["upsample_rates"]
-    for batch_frames in ([frames], [512, 400, 256, 130]):
-        total = None
-        cum = 1
-        for i, spec in enumerate(stages):
-            cum *= rates[i]
-            ch = spec["W"].shape[1]
-            t = frames * cum
-            valid = [n * cum for n in batch_frames]
-            vt = torch.tensor(valid, dtype=torch.int32, device=dev)
-            inputs = [(torch.randn(len(valid), t, ch, device=dev,
-                                   generator=gen) * 0.5, vt)
-                      for _ in range(3)]
-            out_ch = 1 if "postW" in spec else ch
-            nbytes = (len(valid) * t * (ch + out_ch) * 4 + tensor_bytes(spec)
-                      + 4 * len(valid))
-            res = compare(
-                "C", lambda x, v, s=spec: fused_stage.apply_group(s, x, v),
-                lambda x, v, s=spec: fused_stage.plain(s, x, v), inputs,
-                stage_flops(spec, valid, ch), nbytes,
-                f"stage {i} B={len(valid)} [{t}, {ch}] valid={valid}"
-                + (" +post" if "postW" in spec else ""), tf32=True)
-            if total is None:
-                total = dict(res)
-            else:
-                total["max_abs_err"] = max(total["max_abs_err"],
-                                           res["max_abs_err"])
-                for key in ("ms", "plain_ms", "flops", "bytes"):
-                    total[key] += res[key]
+    for batch_frames in ([512], [512, 400, 256, 130]):
+        total = compare_stages(torch, stages, rates, batch_frames, gen, dev)
         if "C" not in results:
             # the three stage launches of one 512-frame request
-            total["bound_ms"], total["bound_by"] = bound(
-                TF32_PASSES * total["flops"], total["bytes"],
-                PEAK_TF32_FLOPS)
-            total["bound_f32_ms"] = bound(total["flops"], total["bytes"])[0]
-            print(f"kernel C 3 stages B=1 512 frames: kernel_ms="
-                  f"{total['ms']:.4f} bound_ms={total['bound_ms']:.5f} "
-                  f"(3xTF32, {total['bound_by']}) bound_f32_ms="
-                  f"{total['bound_f32_ms']:.5f}", flush=True)
+            stage_total_line(total, "3 stages B=1 512 frames")
             results["C"] = total
         else:
             results["C"]["max_abs_err"] = max(results["C"]["max_abs_err"],
@@ -347,7 +378,7 @@ def kernel_phases(torch, params, flow_g_params, high_stage0, seed, dev):
     # 11 at dilation 5), 512 frames ---
     spec = high_stage0
     ch = spec["W"].shape[1]
-    t = frames * 8
+    t = 512 * 8
     valid = [t, t - 1001]
     vt = torch.tensor(valid, dtype=torch.int32, device=dev)
     inputs = [(torch.randn(2, t, ch, device=dev, generator=gen) * 0.5, vt)
@@ -546,12 +577,12 @@ def stage_conv_profile(torch, port_cuda, stages, rates, dev, seed,
                                    for label, ms in order), flush=True)
 
 
-def write_voice(torch, params, hp, out_dir: Path):
+def write_voice(torch, params, hp, out_dir: Path, name: str = "medium"):
     from phoonnx_tpu_torch.models.vits.load import params_to_flat
     from phoonnx_tpu_torch.onnx.writer import write_onnx
 
     out_dir.mkdir(parents=True, exist_ok=True)
-    model_path = out_dir / "medium.onnx"
+    model_path = out_dir / f"{name}.onnx"
     write_onnx(str(model_path), params_to_flat(params),
                metadata={"model_type": "vits",
                          "sample_rate": str(hp.sample_rate)},
@@ -567,7 +598,7 @@ def write_voice(torch, params, hp, out_dir: Path):
         "inference": {"noise_scale": 0.667, "length_scale": 1.0,
                       "noise_w": 0.8},
     }
-    config_path = out_dir / "medium.onnx.json"
+    config_path = out_dir / f"{name}.onnx.json"
     config_path.write_text(json.dumps(config), encoding="utf-8")
     return model_path, config_path
 
@@ -580,19 +611,50 @@ def text_of(n_letters: int, offset: int) -> str:
     return " ".join(words)
 
 
-def main_path(torch, model_path, config_path, seed):
-    """The port's serving path as a user drives it, on the default device."""
-    from phoonnx_tpu_torch import SynthesisConfig, TTSVoice
+def serving_kernels():
+    """The kernels of the serving path, by name."""
     from phoonnx_tpu_torch.models.vits import (fused_encoder, fused_flow,
                                                fused_stage)
 
-    kernels = {"A": fused_encoder, "B": fused_flow, "C": fused_stage}
+    return {"A": fused_encoder, "B": fused_flow, "C": fused_stage}
+
+
+def reset_launches(kernels) -> None:
     for mod in kernels.values():
         mod.launches = 0
 
+
+def launch_counts(kernels):
+    """Each kernel's launches since :func:`reset_launches`."""
+    return {k: mod.launches for k, mod in kernels.items()}
+
+
+def report_launches(launches, tag: str, path: str):
+    """Print a path's launch counts; each kernel must have been launched
+    on the path."""
+    print(f"{tag}: launches on the {path} {launches}", flush=True)
+    for name, n in launches.items():
+        check(n > 0, f"kernel {name} was not launched on the {path}")
+    return launches
+
+
+def read_launches(kernels, tag: str, path: str):
+    """The launch counts since :func:`reset_launches`, printed and
+    checked as :func:`report_launches` does."""
+    return report_launches(launch_counts(kernels), tag, path)
+
+
+def main_path(torch, model_path, config_path, seed, tag="main"):
+    """The port's serving path as a user drives it, on the default device.
+    Returns (voice, launches, requests)."""
+    from phoonnx_tpu_torch import SynthesisConfig, TTSVoice
+
+    kernels = serving_kernels()
+    reset_launches(kernels)
+
     t0 = time.perf_counter()
     voice = TTSVoice.load(str(model_path), str(config_path))
-    print(f"main: TTSVoice.load {time.perf_counter() - t0:.3f} s on "
+    print(f"{tag}: TTSVoice.load {time.perf_counter() - t0:.3f} s on "
           f"{voice.engine.device}", flush=True)
     check(voice.engine.device.type == "cuda", "the voice is not on the GPU")
     hop = voice.engine.hp.total_upsample
@@ -620,7 +682,7 @@ def main_path(torch, model_path, config_path, seed):
         check(bool(torch.isfinite(torch.from_numpy(audio)).all()),
               "non-finite audio")
         frames = len(audio) // hop
-        print(f"main: single request ids={ids} frames={frames} "
+        print(f"{tag}: single request ids={ids} frames={frames} "
               f"samples={len(audio)} ms={ms:.3f}", flush=True)
         requests.append({"ids": ids, "frames": frames, "ms": ms})
 
@@ -639,10 +701,10 @@ def main_path(torch, model_path, config_path, seed):
               f"batch member {i}: {len(out)} samples vs {len(single)} alone")
         err = float(abs(single - out).max())
         worst = max(worst, err)
-        print(f"main: batch member {i} ids={len(ids)} "
+        print(f"{tag}: batch member {i} ids={len(ids)} "
               f"frames={len(out) // hop} max_abs_vs_single={err:.3e}",
               flush=True)
-    print(f"main: batch of {len(texts)} ms={batch_ms:.3f} "
+    print(f"{tag}: batch of {len(texts)} ms={batch_ms:.3f} "
           f"max_abs_vs_single={worst:.3e}", flush=True)
     # the engine's own frame counts against the voice's trimmed audio
     padded, frames = voice.engine.synthesize_batch(
@@ -654,14 +716,11 @@ def main_path(torch, model_path, config_path, seed):
     check(worst <= BATCH_TOL,
           f"padded batch differs from single decodes by {worst:.3e}")
 
-    launches = {k: mod.launches for k, mod in kernels.items()}
-    print(f"main: launches {launches}", flush=True)
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} was not launched on the main path")
+    launches = read_launches(kernels, tag, "serving path")
     return voice, launches, requests
 
 
-def path_vs_plain(torch, voice, seed):
+def path_vs_plain(torch, voice, seed, tag="path"):
     """One ragged batch through model.infer's two phases with the kernels
     on the card, and on the same noise through the plain versions on the
     host's CPU (the parameters without kernel specs, as the model code runs
@@ -711,11 +770,235 @@ def path_vs_plain(torch, voice, seed):
         span = n * hp.total_upsample
         wave_err = max(wave_err,
                        (a_k[i, :span] - a_p[i, :span]).abs().max().item())
-    print(f"path: kernels on the card vs plain versions on the CPU: prior "
+    print(f"{tag}: kernels on the card vs plain versions on the CPU: prior "
           f"stats max_abs={enc_err:.3e}, waveform max_abs on the valid "
           f"span={wave_err:.3e} (frames {y_k.tolist()})", flush=True)
     check(enc_err <= KERNEL_TOL, f"encoder path differs by {enc_err:.3e}")
     check(wave_err <= PATH_TOL, f"waveform differs by {wave_err:.3e}")
+
+
+# the streamed request: chunks of 128 latent frames with 32 of context on
+# each side (the engine's defaults)
+STREAM_CHUNK, STREAM_OVERLAP = 128, 32
+# host-clock times of one request spread by ~30 % from run to run, and
+# some voices' runs are bimodal: enough runs in turns that the quartiles
+# of two timings separate where they differ by ~15 %
+STREAM_RUNS = 41
+
+
+def quartiles(xs):
+    """(first quartile, median, third quartile) of xs."""
+    q1, q2, q3 = statistics.quantiles(xs, n=4, method="inclusive")
+    return q1, q2, q3
+
+
+def compare_times(name, xs, ref_name, ref):
+    """One line: the ratio of two timings' medians, their quartiles and
+    whether the quartile ranges separate (only then does the ratio tell
+    which is faster)."""
+    (a1, a2, a3), (b1, b2, b3) = quartiles(xs), quartiles(ref)
+    separated = a3 < b1 or b3 < a1
+    return (f"{name}/{ref_name} {a2 / b2:.3f} (quartiles {name} "
+            f"{a1:.3f}/{a2:.3f}/{a3:.3f}, {ref_name} {b1:.3f}/{b2:.3f}/"
+            f"{b3:.3f}; {'separated' if separated else 'overlapping'})")
+
+
+def stream_phase(torch, voice, seed, tag="stream"):
+    """The ~241-id request of the serving path, streamed: the concatenated
+    chunks against the monolithic request with the same seed, and the
+    time to the first chunk, of the whole stream and of the monolithic
+    request (host clock, STREAM_RUNS of each in turns, their quartiles).
+    Returns the launches of the streamed calls alone: the counts are
+    zeroed just before each streamed call and read just after it, so the
+    monolithic requests timed beside them are not counted. Each stream
+    must launch kernel C once a stage for every chunk."""
+    from phoonnx_tpu_torch import SynthesisConfig
+    from phoonnx_tpu_torch.infer.engine import FLOW_CONTEXT
+
+    kernels = serving_kernels()
+    text = text_of(100, 3)
+    cfg = SynthesisConfig(seed=seed, normalize_audio=False)
+    n_ids = len(voice.phonemes_to_ids(voice.phonemize(text)[0]))
+    n_stages = len(voice.engine.params["dec"]["ups"])
+    launches = dict.fromkeys(kernels, 0)
+
+    def monolithic():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        chunks = list(voice.synthesize(text, cfg))
+        return chunks[0].audio_float_array, (time.perf_counter() - t0) * 1e3
+
+    def streamed():
+        torch.cuda.synchronize()
+        reset_launches(kernels)
+        t0 = time.perf_counter()
+        parts, first_ms = [], None
+        for chunk in voice.synthesize_streaming(
+                text, cfg, chunk_frames=STREAM_CHUNK,
+                overlap_frames=STREAM_OVERLAP):
+            if first_ms is None:
+                first_ms = (time.perf_counter() - t0) * 1e3
+            parts.append(chunk.audio_float_array)
+        total_ms = (time.perf_counter() - t0) * 1e3
+        counts = launch_counts(kernels)
+        check(counts["C"] == len(parts) * n_stages,
+              f"{tag}: kernel C launched {counts['C']} times for "
+              f"{len(parts)} chunks of {n_stages} stages")
+        for k, n in counts.items():
+            launches[k] += n
+        return parts, first_ms, total_ms
+
+    streamed()  # warm the window shapes
+    mono_ms, first_ms, stream_ms = [], [], []
+    for _ in range(STREAM_RUNS):
+        whole, ms = monolithic()
+        mono_ms.append(ms)
+        parts, first, total = streamed()
+        first_ms.append(first)
+        stream_ms.append(total)
+    hop = voice.engine.hp.total_upsample
+    frames = len(whole) // hop
+    window = STREAM_CHUNK + 2 * STREAM_OVERLAP
+    check(frames > window + FLOW_CONTEXT,
+          f"{tag}: {frames} frames do not reach past the first window and "
+          "its flow context: the windowed decode would not run")
+    stream = np.concatenate(parts)
+    check(stream.shape == whole.shape,
+          f"{tag}: {stream.shape} streamed samples vs {whole.shape}")
+    check(bool(np.isfinite(stream).all()), f"{tag}: non-finite audio")
+    err = float(np.abs(stream - whole).max())
+    print(f"{tag}: ids={n_ids} frames={frames} chunks={len(parts)} "
+          f"(chunk {STREAM_CHUNK}, overlap {STREAM_OVERLAP}) "
+          f"first_chunk_ms={statistics.median(first_ms):.3f} "
+          f"stream_ms={statistics.median(stream_ms):.3f} "
+          f"monolithic_ms={statistics.median(mono_ms):.3f} (medians of "
+          f"{STREAM_RUNS} in turns) max_abs_vs_monolithic={err:.3e}",
+          flush=True)
+    print(f"{tag}: " + compare_times("first", first_ms, "monolithic",
+                                     mono_ms), flush=True)
+    print(f"{tag}: " + compare_times("stream", stream_ms, "monolithic",
+                                     mono_ms), flush=True)
+    check(err <= BATCH_TOL,
+          f"{tag}: the stream differs from the monolithic request by "
+          f"{err:.3e}")
+    return report_launches(
+        launches, tag, f"streaming path ({STREAM_RUNS + 1} streams, each "
+        "counted from 0; monolithic requests not counted)"), mono_ms
+
+
+# relative bound of the card's inverse STFT against the CPU's: both are
+# float32 products and convs (TF32 off) summed in other orders
+ISTFT_TOL = 1e-5
+
+
+def istft_card_vs_cpu(torch, hp, seed, tag):
+    """``ops/istft.istft`` on the card against the CPU at the decoder's
+    shape for 512 latent frames (bands folded into the batch), with and
+    without frame lengths, on phases that give the DC and Nyquist bins
+    imaginary parts (which an inverse real FFT must drop)."""
+    from phoonnx_tpu_torch.ops.istft import istft
+
+    frames = 512
+    for rate in hp.upsample_rates:
+        frames *= rate
+    frames += 1  # the decoder's silent pad frame
+    b = 2 * hp.istft_bands
+    n_freqs = hp.istft_n_fft // 2 + 1
+    gen = torch.Generator().manual_seed(seed)
+    mag = torch.exp(torch.randn(b, frames, n_freqs, generator=gen))
+    phase = math.pi * torch.sin(torch.randn(b, frames, n_freqs,
+                                            generator=gen))
+    lengths = torch.tensor([frames, frames // 3 + 1] * hp.istft_bands,
+                           dtype=torch.int32)
+    mag = mag * (torch.arange(frames)[None, :]
+                 < lengths[:, None])[..., None]
+    args = (hp.istft_n_fft, hp.istft_hop, hp.istft_n_fft)
+    for fl in (None, lengths):
+        want = istft(mag, phase, *args, fl)
+        got = istft(mag.cuda(), phase.cuda(), *args,
+                    None if fl is None else fl.cuda())
+        torch.cuda.synchronize()
+        check(got.shape == want.shape,
+              f"{tag}: istft shape {tuple(got.shape)} vs {tuple(want.shape)}")
+        scale = want.abs().max().item()
+        err = (got.cpu() - want).abs().max().item()
+        print(f"{tag}: istft on the card vs the CPU, [{b}, {frames}, "
+              f"{n_freqs}] frame_lengths={'no' if fl is None else 'yes'}: "
+              f"max_abs={err:.3e} of max {scale:.3e}", flush=True)
+        check(err <= ISTFT_TOL * scale,
+              f"{tag}: istft on the card differs by {err:.3e} (max "
+              f"{scale:.3e})")
+
+
+def decode_without_sync(torch, engine, tag):
+    """A padded decode of a stream's window (kernel C's stages, the heads,
+    the iSTFT and the PQMF bank) after a warm call makes no host sync,
+    such as a copy of a constant from host memory: CUDA's sync debug mode
+    raises on one."""
+    from phoonnx_tpu_torch.models.vits import model as vits_model
+
+    window = STREAM_CHUNK + 2 * STREAM_OVERLAP
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    z = torch.randn(2, window, engine.hp.inter_channels, generator=gen,
+                    device="cuda")
+    valid = torch.tensor([window, window // 3], dtype=torch.int32,
+                         device="cuda")
+    with torch.inference_mode():
+        vits_model.decode_audio(engine.params, engine.hp, z,
+                                frame_lengths=valid)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            vits_model.decode_audio(engine.params, engine.hp, z,
+                                    frame_lengths=valid)
+        except RuntimeError as err:
+            fail(f"{tag}: a window's decode synchronizes the host: {err}")
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+    print(f"{tag}: a padded window decode [2, {window}] made no host sync "
+          "(sync debug mode 'error')", flush=True)
+
+
+def istft_phase(torch, quality, seed, root: Path, medium_ms=None):
+    """An iSTFT voice (``quality``: medium-istft or medium-mb-istft) as a
+    user serves it: written with the port's ONNX writer, loaded with
+    ``TTSVoice.load`` on the default device, three single requests and a
+    ragged batch of four, the path against the plain versions on the
+    CPU, one streamed request; then kernel C on its stages at B=1 and 512
+    frames against its plain version, and the card's iSTFT against the
+    CPU's. Returns (kernel C's stage totals, launches by path)."""
+    hp, params = model_params(torch, quality, seed)
+    tag = f"istft {quality}"
+    model_path, config_path = write_voice(
+        torch, params, hp, root / "build" / "chip_smoke", name=quality)
+    voice, served, _ = main_path(torch, model_path, config_path, seed, tag)
+    got = voice.engine.hp
+    print(f"{tag}: decoder_type={got.decoder_type} istft_n_fft="
+          f"{got.istft_n_fft} istft_hop={got.istft_hop} istft_bands="
+          f"{got.istft_bands} upsample_rates={got.upsample_rates} "
+          f"total_upsample={got.total_upsample}", flush=True)
+    check((got.decoder_type, got.istft_bands, got.total_upsample)
+          == ("istft", hp.istft_bands, 256),
+          f"{tag}: the loaded voice is not the {quality} decoder")
+    path_vs_plain(torch, voice, seed + 1, tag)
+    streamed, mono_ms = stream_phase(torch, voice, seed + 2, tag)
+    if medium_ms:
+        print(f"{tag}: " + compare_times(
+            "monolithic", mono_ms, "medium's", medium_ms)
+            + " (the 241-id request; the medium voice's runs from its "
+            "stream phase, earlier in this call)", flush=True)
+
+    dec = voice.engine.params["dec"]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    total = compare_stages(torch, dec["fused_stages"], dec["upsample_rates"],
+                           [512], gen, torch.device("cuda"), f"{quality} ")
+    stage_total_line(total, f"{quality} {len(dec['fused_stages'])} stages "
+                     "B=1 512 frames")
+    istft_card_vs_cpu(torch, got, seed + 3, tag)
+    decode_without_sync(torch, voice.engine, tag)
+    return total, {f"{quality} serving path": served,
+                   f"{quality} streaming path": streamed}
 
 
 def kernels_in_call(torch, fn, label, kernel_name):
@@ -1022,24 +1305,30 @@ def params_of(state):
     return step.leaves(state.params_g) + step.leaves(state.params_d)
 
 
-def training_phase(torch, root: Path, seed: int, profile: bool):
-    """The port's training path as a user drives it: run_training on a
-    synthetic dataset at the medium preset, batch 16, one epoch."""
-    from phoonnx_tpu_torch.models.vits import (fused_encoder, fused_flow,
-                                               fused_stage)
+def training_dataset(torch, root: Path, seed: int) -> Path:
+    """The synthetic dataset of the training phases: 45 utterances, 5 held
+    out for tests (run_training's default), 4 validation, 36 train; its
+    hop and STFT are those of every 22050 Hz preset."""
     from phoonnx_tpu_torch.models.vits.model import VitsHParams
+
+    t0 = time.perf_counter()
+    data = write_dataset(torch, root / "build" / "chip_smoke" / "dataset",
+                         VitsHParams.preset("medium"), 45, seed)
+    print(f"train: wrote 45 utterances in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return data
+
+
+def training_phase(torch, data: Path, seed: int, profile: bool,
+                   quality: str = "medium"):
+    """The port's training path as a user drives it: run_training on the
+    synthetic dataset at ``quality``, batch 16, one epoch. Returns kernel
+    D's launches and the step and kernel D times."""
     from phoonnx_tpu_torch.ops import mas
     from phoonnx_tpu_torch.train import checkpoint, step
     from phoonnx_tpu_torch.train.trainer import run_training
 
-    hp = VitsHParams.preset("medium")
-    t0 = time.perf_counter()
-    # 45 utterances: 5 held out for tests (run_training's default), 4
-    # validation, 36 train
-    data = write_dataset(torch, root / "build" / "chip_smoke" / "dataset",
-                         hp, 45, seed)
-    print(f"train: wrote 45 utterances in {time.perf_counter() - t0:.1f} s",
-          flush=True)
+    tag = "train" if quality == "medium" else f"train {quality}"
 
     # kernel D's time inside each step, from CUDA events around its launch
     events = []
@@ -1055,12 +1344,12 @@ def training_phase(torch, root: Path, seed: int, profile: bool):
         return out
 
     mas.launch = timed_launch
-    others = {"A": fused_encoder, "B": fused_flow, "C": fused_stage}
+    others = serving_kernels()
     try:
         for mod in (mas, *others.values()):
             mod.launches = 0
         t0 = time.perf_counter()
-        run = run_training(str(data), quality="medium", batch_size=16,
+        run = run_training(str(data), quality=quality, batch_size=16,
                            max_epochs=1, seed=seed, log_every=1)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -1068,7 +1357,7 @@ def training_phase(torch, root: Path, seed: int, profile: bool):
         other_launches = {k: m.launches for k, m in others.items()}
     finally:
         mas.launch = launch
-    print(f"train: run_training wall {wall:.3f} s, {len(run.steps)} steps, "
+    print(f"{tag}: run_training wall {wall:.3f} s, {len(run.steps)} steps, "
           f"kernel D launches {launches}, kernels A/B/C launches "
           f"{other_launches}", flush=True)
     check(launches > 0, "kernel D was not launched on the training path")
@@ -1080,14 +1369,14 @@ def training_phase(torch, root: Path, seed: int, profile: bool):
     mas_ms = [s.elapsed_time(e) for s, e, _ in events]
     for record, ms, (_, _, shape) in zip(run.steps, mas_ms, events):
         losses = " ".join(f"{k}={record[k]:.4f}" for k in step.METRICS)
-        print(f"train: step {record['step']} ms={record['ms']:.3f} {losses} "
+        print(f"{tag}: step {record['step']} ms={record['ms']:.3f} {losses} "
               f"kernel_D_ms={ms:.4f} mas_shape={list(shape)}", flush=True)
         check(all(math.isfinite(record[k]) for k in step.METRICS),
               f"non-finite loss at step {record['step']}")
     step_ms = [r["ms"] for r in run.steps]
     steady = step_ms[1:] or step_ms
     d_steady = mas_ms[1:len(step_ms)] or mas_ms[:1]
-    print(f"train: step ms first={step_ms[0]:.3f} steady median="
+    print(f"{tag}: step ms first={step_ms[0]:.3f} steady median="
           f"{statistics.median(steady):.3f}; kernel D median "
           f"{statistics.median(d_steady):.4f} ms = "
           f"{statistics.median(d_steady) / statistics.median(steady):.5f} "
@@ -1100,7 +1389,7 @@ def training_phase(torch, root: Path, seed: int, profile: bool):
     moved = sum(not torch.equal(a.detach().cpu(), b.detach())
                 for a, b in zip(params_of(run.state), params_of(init)))
     total = len(params_of(init))
-    print(f"train: {moved} of {total} parameter tensors changed", flush=True)
+    print(f"{tag}: {moved} of {total} parameter tensors changed", flush=True)
     check(moved > total // 2, f"only {moved} of {total} parameters changed")
 
     # the checkpoint restores to equal tensors
@@ -1122,7 +1411,7 @@ def training_phase(torch, root: Path, seed: int, profile: bool):
             check(torch.equal(opt_a.state[a]["exp_avg_sq"],
                               opt_b.state[b]["exp_avg_sq"]),
                   "a restored optimizer moment differs")
-    print(f"train: checkpoint {Path(run.checkpoint).name} restores "
+    print(f"{tag}: checkpoint {Path(run.checkpoint).name} restores "
           f"{total} parameter tensors and their moments equal", flush=True)
 
     if profile:
@@ -1249,28 +1538,40 @@ def high_stage0(torch, seed, dev):
         modules.LRELU_SLOPE)
 
 
-def medium_params(torch, seed):
-    from phoonnx_tpu_torch.models.vits import model as vits_model, posterior
+def model_params(torch, quality, seed):
+    """(hparams, random params) of a preset, the flow's post convs made
+    non-zero."""
+    from phoonnx_tpu_torch.models.vits import model as vits_model
 
-    hp = vits_model.VitsHParams.preset("medium")
+    hp = vits_model.VitsHParams.preset(quality)
     gen = torch.Generator().manual_seed(seed)
-
-    def randomize_post(flow_params):
-        # the flow's post convs start at zero, which makes every coupling
-        # the identity; small random values make kernel B do real work
-        for flow in flow_params["flows"]:
-            for key in ("weight", "bias"):
-                flow["post"][key] = 0.05 * torch.randn(
-                    flow["post"][key].shape, generator=gen)
-        return flow_params
-
     params = vits_model.random_params(hp, gen)
-    randomize_post(params["flow"])
+    randomize_post(params["flow"], gen)
+    return hp, params
+
+
+def randomize_post(flow_params, gen):
+    """The flow's post convs start at zero, which makes every coupling the
+    identity; small random values make kernel B do real work."""
+    import torch
+
+    for flow in flow_params["flows"]:
+        for key in ("weight", "bias"):
+            flow["post"][key] = 0.05 * torch.randn(flow["post"][key].shape,
+                                                   generator=gen)
+    return flow_params
+
+
+def medium_params(torch, seed):
+    from phoonnx_tpu_torch.models.vits import posterior
+
+    hp, params = model_params(torch, "medium", seed)
+    gen = torch.Generator().manual_seed(seed + 1)
     # a multi-speaker flow of the same widths for kernel B's g input
     gin = 256
     flow_g = randomize_post(posterior.init_residual_coupling_block(
         gen, hp.inter_channels, hp.hidden_channels, 5, 1, 4,
-        gin_channels=gin))
+        gin_channels=gin), gen)
     return hp, params, flow_g, gin
 
 
@@ -1335,18 +1636,41 @@ def main() -> None:
         parent=parent_mas(port_cuda, args.parent, parents["mas"])
         if parents else None)
 
-    # serving: kernels A, B and C
+    # serving: kernels A, B and C, on the medium voice (whole and
+    # streamed) and the two iSTFT voices; each path's launches are counted
+    # from 0 and printed
+    paths = {}
     model_path, config_path = write_voice(
         torch, params, hp, ROOT / "build" / "chip_smoke")
-    voice, launches, _ = main_path(torch, model_path, config_path, args.seed)
+    voice, paths["medium serving path"], _ = main_path(
+        torch, model_path, config_path, args.seed)
     path_vs_plain(torch, voice, args.seed + 1)
     if args.profile:
         profile_request(torch, voice, args.seed + 2)
+    paths["medium streaming path"], medium_ms = stream_phase(
+        torch, voice, args.seed + 3)
     del voice
+    for quality in ("medium-istft", "medium-mb-istft"):
+        stages, served = istft_phase(torch, quality, args.seed, ROOT,
+                                     medium_ms)
+        paths.update(served)
+        results["C"]["max_abs_err"] = max(results["C"]["max_abs_err"],
+                                          stages["max_abs_err"])
 
-    # training: kernel D
-    launches["D"], _ = training_phase(torch, ROOT, args.seed, args.profile)
+    # training: kernel D, at medium and on the MB-iSTFT decoder
+    data = training_dataset(torch, ROOT, args.seed)
+    d_medium, _ = training_phase(torch, data, args.seed, args.profile)
+    d_mb, _ = training_phase(torch, data, args.seed, False,
+                             quality="medium-mb-istft")
     overfit_phase(torch, dev, args.seed)
+
+    launches = {name: sum(counts[name] for counts in paths.values())
+                for name in ("A", "B", "C")}
+    launches["D"] = d_medium + d_mb
+    for path, counts in paths.items():
+        print(f"launches: {path} {counts}", flush=True)
+    print(f"launches: training medium D={d_medium}, training "
+          f"medium-mb-istft D={d_mb}; summed {launches}", flush=True)
 
     jax_dir = "phoonnx_tpu/models/vits"
     sources = {"A": ("fused_encoder", f"{jax_dir}/fused_encoder.py:195"),

@@ -13,10 +13,15 @@ Noise is drawn per utterance from a ``torch.Generator`` seeded with
 [T_x, 2] and then the prior noise [frames, C]. An utterance therefore gets
 the same noise alone as inside a batch, and the padded batch decode equals
 the single decode on the valid span.
+
+Streaming (``synthesize_ids_streaming``) decodes the latent frames in
+overlapping windows. The decoders are translation-invariant conv stacks,
+so with the same seed the concatenated stream equals ``synthesize_ids``.
 """
 
 import logging
-from typing import List, Optional, Sequence, Tuple
+import math
+from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -28,6 +33,12 @@ LOG = logging.getLogger(__name__)
 
 # the JAX engine's largest frame bucket: longer predictions are truncated
 MAX_FRAMES = 4096
+
+# right context (frames) the inverse coupling flow reads past any output
+# frame: 4 couplings x WN(4 layers, k=5, d=1) x (5-1)/2. Latents computed
+# on a prefix with this much extra context equal the whole utterance's
+# latents on the prefix's first frames.
+FLOW_CONTEXT = 32
 
 
 def resolve_device(device=None) -> torch.device:
@@ -100,6 +111,125 @@ class VitsEngine:
             length_scale=length_scale, noise_w=noise_w,
             speaker_ids=[speaker_id], seed=seed)
         return audio[0][: lengths[0] * self.hp.total_upsample]
+
+    def _decode_chunk(self, z: torch.Tensor, start: int, offset: int,
+                      y_len: int, g: Optional[torch.Tensor], window: int,
+                      chunk: int) -> torch.Tensor:
+        """Decode the latent window ``z[:, start:start + window]`` and keep
+        its frames ``[offset, offset + chunk)``, as audio samples.
+
+        With at least the decoder's receptive field of context on each
+        side of the kept span (or the utterance's true edge), the kept
+        audio equals the monolithic decode there. The window lies inside
+        the latent buffer and is never zero-padded: zero latent frames are
+        not the convs' own zero padding, since biases propagate through
+        the stack. Frames past the utterance (``y_len``) are masked by the
+        decoder's ``frame_lengths`` contract.
+        """
+        up = self.hp.total_upsample
+        zc = z[:, start:start + window]
+        valid = torch.full((z.shape[0],), min(max(y_len - start, 0), window),
+                           dtype=torch.int32, device=z.device)
+        audio = vits_model.decode_audio(self.params, self.hp, zc, g=g,
+                                        frame_lengths=valid)
+        return audio[:, offset * up:(offset + chunk) * up]
+
+    @torch.inference_mode()
+    def synthesize_ids_streaming(
+        self,
+        phoneme_ids: Sequence[int],
+        chunk_frames: int = 128,
+        overlap_frames: int = 32,
+        noise_scale: float = 0.667,
+        length_scale: float = 1.0,
+        noise_w: float = 0.8,
+        speaker_id: int = 0,
+        seed: Optional[int] = None,
+        lang_id: Optional[int] = None,
+    ) -> Iterator[np.ndarray]:
+        """Yield one utterance's float32 waveform in chunks of
+        ``chunk_frames`` latent frames as the decoder produces them.
+        ``lang_id`` is accepted for API parity and unused.
+
+        For the time to the first audio, the durations are read by the
+        host, then only a prefix of the latents (the first window and
+        ``FLOW_CONTEXT`` frames of the flow's right context) goes through
+        the flow before the first window is decoded. The remaining chunks
+        decode windows of the whole utterance's latents with
+        ``overlap_frames`` frames of context on each side (32 covers every
+        preset's decoder). The noise is drawn as :meth:`synthesize_batch`
+        draws it, and the prefix's prior noise is a slice of the same
+        draw, so with the same ``seed`` the concatenated stream equals
+        :meth:`synthesize_ids`.
+        """
+        self._check_speakers((speaker_id,))
+        if seed is None:
+            seed = int(np.random.randint(0, 2 ** 31 - 1))
+        dev = self.device
+        hp = self.hp
+        up = hp.total_upsample
+        chunk = max(1, chunk_frames)
+        overlap = max(0, overlap_frames)
+        window = chunk + 2 * overlap
+
+        gen = torch.Generator().manual_seed(seed)
+        ids = torch.as_tensor([list(phoneme_ids)], dtype=torch.int64)
+        lengths = torch.tensor([len(phoneme_ids)], dtype=torch.int32)
+        dp_noise = torch.randn((len(phoneme_ids), 2), generator=gen)[None]
+        sid = torch.tensor([speaker_id], dtype=torch.int64, device=dev)
+        m_p, logs_p, w_ceil, x_mask, g = vits_model.infer_durations(
+            self.params, hp, ids.to(dev), lengths.to(dev), length_scale,
+            noise_w, sid=sid, dp_noise=dp_noise.to(dev))
+        # host decision: the frame count from the predicted durations
+        n_frames = self._frame_budget(
+            int(torch.clamp(torch.sum(w_ceil, dim=-1), min=1.0)[0]))
+        prior = torch.randn((n_frames, hp.inter_channels),
+                            generator=gen)[None].to(dev)
+
+        # first audio: the flow over the prefix only, then the first window
+        n_pre = min(window + FLOW_CONTEXT, n_frames)
+        z_pre, _ = vits_model.infer_latents(
+            self.params, hp, m_p, logs_p, w_ceil, x_mask, n_pre, noise_scale,
+            g=g, prior_noise=prior[:, :n_pre])
+        first_window = min(window, n_pre)
+        audio = self._decode_chunk(z_pre, 0, 0, n_frames, g, first_window,
+                                   first_window)
+        wav = audio[0].float().cpu().numpy()
+        yield wav[:min(chunk, n_frames) * up]
+        if n_frames <= window:
+            # the first window held the whole utterance
+            if n_frames > chunk:
+                yield wav[chunk * up:n_frames * up]
+            return
+
+        z, _ = vits_model.infer_latents(
+            self.params, hp, m_p, logs_p, w_ceil, x_mask, n_frames,
+            noise_scale, g=g, prior_noise=prior)
+        in_flight = []
+        for i in range(1, math.ceil(n_frames / chunk)):
+            # the window stays inside the latent buffer, so the kept span
+            # has >= overlap frames of true context (or the utterance's
+            # edge) on each side
+            start = min(max(i * chunk - overlap, 0), n_frames - window)
+            offset = i * chunk - start
+            # a final chunk whose nominal span overruns the buffer keeps
+            # the buffer's last `chunk` frames instead and skips, when
+            # emitted, what earlier chunks already gave
+            skip = 0
+            if offset > window - chunk:
+                offset = window - chunk
+                skip = (i * chunk - (start + offset)) * up
+            in_flight.append((self._decode_chunk(
+                z, start, offset, n_frames, g, window, chunk), skip))
+        emitted = chunk * up
+        total = n_frames * up
+        for audio, skip in in_flight:
+            wav = audio[0].float().cpu().numpy()
+            take = min(len(wav) - skip, total - emitted)
+            if take <= 0:
+                break
+            emitted += take
+            yield wav[skip:skip + take]
 
     @torch.inference_mode()
     def synthesize_batch(

@@ -92,9 +92,12 @@ def build_stage_specs(params) -> tuple:
     return tuple(specs)
 
 
-def generator(params, x: Tensor, g: Optional[Tensor] = None,
-              frame_lengths: Optional[Tensor] = None) -> Tensor:
-    """Latent frames [B, T, C] -> waveform [B, T * prod(rates)].
+def upsample_stages(params, x: Tensor, g: Optional[Tensor],
+                    frame_lengths: Optional[Tensor], build_specs):
+    """conv_pre (plus the speaker term), then per upsampling stage a leaky
+    ReLU, the transposed conv and the stage's resblock group through
+    kernel C, masked to the valid span: the serving part that the HiFi-GAN
+    and iSTFT generators share. Returns (x, valid [B], cum_up).
 
     frame_lengths: optional [B] true frame counts. When given, the bleed
     window past each element's valid length is zeroed after conv_pre, and
@@ -103,10 +106,10 @@ def generator(params, x: Tensor, g: Optional[Tensor] = None,
     (the reference slices z to the true length before ``dec``,
     models.py:721).
 
-    Every stage's resblock group runs through kernel C, from the specs
-    ``model.attach_fused_specs`` puts in ``fused_stages``. Parameters on
-    the CPU without them get them built here; on the GPU a missing spec
-    raises, since the kernel needs its stacked weights on the card.
+    The specs come from ``fused_stages``, which ``model.attach_fused_specs``
+    fills. Parameters on the CPU without them get them from
+    ``build_specs(params)`` here; on the GPU a missing spec raises, since
+    the kernel needs its stacked weights on the card.
     """
     stages = params.get("fused_stages")
     if stages is None:
@@ -114,7 +117,7 @@ def generator(params, x: Tensor, g: Optional[Tensor] = None,
             raise ValueError(
                 "decoder parameters on the GPU carry no kernel C specs: "
                 "attach them with model.attach_fused_specs")
-        stages = build_stage_specs(params)
+        stages = build_specs(params)
 
     x = nn.apply_conv(params["conv_pre"], x, padding=3)
     if g is not None:
@@ -135,24 +138,30 @@ def generator(params, x: Tensor, g: Optional[Tensor] = None,
         x = nn.leaky_relu(x, modules.LRELU_SLOPE)
         x = nn.conv_transpose1d(x, nn.resolve_weight(up), up.get("bias"),
                                 stride=rate, padding=(kernel - rate) // 2)
-        # the last stage's epilogue (leaky ReLU 0.01 -> conv_post -> tanh,
-        # models.py:364) writes the audio [B, T, 1]
         x = fused_stage.apply_group(stages[i], x.contiguous(),
                                     valid=valid * cum_up)
+    return x, valid, cum_up
+
+
+def generator(params, x: Tensor, g: Optional[Tensor] = None,
+              frame_lengths: Optional[Tensor] = None) -> Tensor:
+    """Latent frames [B, T, C] -> waveform [B, T * prod(rates)].
+
+    The stages of :func:`upsample_stages` (frame_lengths as there), the
+    last one's kernel C call carrying the generator tail (leaky ReLU 0.01
+    -> conv_post -> tanh, models.py:364) as its epilogue, which writes the
+    audio [B, T, 1].
+    """
+    x, _, _ = upsample_stages(params, x, g, frame_lengths, build_stage_specs)
     return x[..., 0]
 
 
-def generator_train(params, x: Tensor, g: Optional[Tensor] = None) -> Tensor:
-    """The decoder the training step differentiates: latent frames
-    [B, T, C] -> waveform [B, T * prod(rates)], in plain PyTorch ops.
-
-    This is the JAX semantics, not a fallback: the JAX training forward
-    decodes a segment of whole frames with no frame lengths through the
-    XLA path of ``hifigan.generator`` (no padding to mask, no kernel), and
-    kernel C has no backward. The stages are conv_pre, then per upsampling
-    stage a leaky ReLU, the transposed conv and the mean of the stage's
-    resblocks, then leaky ReLU 0.01, conv_post and tanh (models.py:345-365).
-    """
+def upsample_stages_train(params, x: Tensor,
+                          g: Optional[Tensor] = None) -> Tensor:
+    """conv_pre, then per upsampling stage a leaky ReLU, the transposed
+    conv and the mean of the stage's resblocks, in plain PyTorch ops
+    (models.py:345-362): the part of the training decoder that the
+    HiFi-GAN and iSTFT families share."""
     num_kernels = params["num_kernels"]
     resblock_fn = (modules.resblock1 if params["resblock_type"] == "1"
                    else modules.resblock2)
@@ -170,7 +179,21 @@ def generator_train(params, x: Tensor, g: Optional[Tensor] = None) -> Tensor:
             out = resblock_fn(params["resblocks"][i * num_kernels + j], x)
             acc = out if acc is None else acc + out
         x = acc / num_kernels
-    x = nn.leaky_relu(x, 0.01)
+    return x
+
+
+def generator_train(params, x: Tensor, g: Optional[Tensor] = None) -> Tensor:
+    """The decoder the training step differentiates: latent frames
+    [B, T, C] -> waveform [B, T * prod(rates)], in plain PyTorch ops.
+
+    This is the JAX semantics, not a fallback: the JAX training forward
+    decodes a segment of whole frames with no frame lengths through the
+    XLA path of ``hifigan.generator`` (no padding to mask, no kernel), and
+    kernel C has no backward. The stages (:func:`upsample_stages_train`)
+    are followed by leaky ReLU 0.01, conv_post and tanh
+    (models.py:363-365).
+    """
+    x = nn.leaky_relu(upsample_stages_train(params, x, g), 0.01)
     x = nn.conv1d(x, params["conv_post"]["weight"],
                   params["conv_post"].get("bias"), padding=3)
     return torch.tanh(x)[..., 0]

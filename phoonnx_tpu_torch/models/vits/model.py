@@ -18,14 +18,11 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from phoonnx_tpu_torch.models.vits import (duration, encoder, hifigan, nn,
-                                           posterior)
+from phoonnx_tpu_torch.models.vits import (duration, encoder, hifigan,
+                                           istft_decoder, nn, posterior)
 from phoonnx_tpu_torch.ops import mas
 
 Tensor = torch.Tensor
-
-# ROADMAP.md port-queue item that brings the iSTFT decoders across
-ISTFT_ITEM = "ROADMAP.md, port queue: 'iSTFT decoders'"
 
 
 @dataclass(frozen=True)
@@ -51,8 +48,8 @@ class VitsHParams:
     n_speakers: int = 1
     gin_channels: int = 0
     use_sdp: bool = True
-    # decoder family: "hifigan" (reference) or "istft" (spectral head +
-    # inverse STFT); only "hifigan" runs in this package so far
+    # decoder family: "hifigan" (reference) or "istft" (spectral heads +
+    # inverse STFT, models/vits/istft_decoder.py)
     decoder_type: str = "hifigan"
     istft_n_fft: int = 16
     istft_hop: int = 4
@@ -137,11 +134,30 @@ class VitsHParams:
         return hp
 
 
-def _require_hifigan(hp: VitsHParams) -> None:
-    if hp.decoder_type != "hifigan":
-        raise NotImplementedError(
-            f"decoder_type {hp.decoder_type!r} is not ported to "
-            f"phoonnx_tpu_torch yet ({ISTFT_ITEM})")
+def _init_decoder(generator: torch.Generator, hp: VitsHParams):
+    """The configured decoder family's parameters (the JAX package's
+    ``_init_decoder``)."""
+    common = (generator, hp.inter_channels, hp.resblock,
+              hp.resblock_kernel_sizes, hp.resblock_dilation_sizes,
+              hp.upsample_rates, hp.upsample_initial_channel,
+              hp.upsample_kernel_sizes)
+    if hp.decoder_type == "istft":
+        return istft_decoder.init_istft_generator(
+            *common, istft_n_fft=hp.istft_n_fft, istft_hop=hp.istft_hop,
+            istft_bands=hp.istft_bands, gin_channels=hp.gin_channels)
+    return hifigan.init_generator(*common, gin_channels=hp.gin_channels)
+
+
+def _decoder(dec_params):
+    """(serving generator, training generator, kernel C specs function) of
+    the decoder family that ``dec_params`` holds: the iSTFT decoder's
+    spectral heads (``conv_mag``) stand where HiFi-GAN has ``conv_post``."""
+    if "conv_mag" in dec_params:
+        return (istft_decoder.istft_generator,
+                istft_decoder.istft_generator_train,
+                istft_decoder.build_stage_specs)
+    return (hifigan.generator, hifigan.generator_train,
+            hifigan.build_stage_specs)
 
 
 def random_params(hp: VitsHParams,
@@ -152,18 +168,13 @@ def random_params(hp: VitsHParams,
     The tree and its flat names (``load.params_to_flat``) are those of the
     JAX package's ``random_params``; the values are not.
     """
-    _require_hifigan(hp)
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     params: Dict[str, Any] = {
         "enc_p": encoder.init_text_encoder(
             generator, hp.n_vocab, hp.inter_channels, hp.hidden_channels,
             hp.filter_channels, hp.n_heads, hp.n_layers, hp.kernel_size),
-        "dec": hifigan.init_generator(
-            generator, hp.inter_channels, hp.resblock,
-            hp.resblock_kernel_sizes, hp.resblock_dilation_sizes,
-            hp.upsample_rates, hp.upsample_initial_channel,
-            hp.upsample_kernel_sizes, gin_channels=hp.gin_channels),
+        "dec": _init_decoder(generator, hp),
         "enc_q": posterior.init_posterior_encoder(
             generator, hp.spec_channels, hp.inter_channels,
             hp.hidden_channels, 5, 1, 16, gin_channels=hp.gin_channels),
@@ -200,8 +211,9 @@ def attach_fused_specs(params):
     """Params view with the kernel specs attached: kernel A's stacked
     encoder weights (``enc_p.encoder.fused``), kernel B's stacked reverse
     flow (``flow.fused_rev``) and kernel C's per-stage resblock groups
-    (``dec.fused_stages``). The specs are built from the tensors where
-    they lie, so attach after moving the parameters to their device.
+    (``dec.fused_stages``, of the HiFi-GAN or the iSTFT decoder). The
+    specs are built from the tensors where they lie, so attach after
+    moving the parameters to their device.
     Idempotent: a subtree that already carries its spec is kept."""
     from phoonnx_tpu_torch.models.vits import fused_encoder, fused_flow
 
@@ -221,9 +233,9 @@ def attach_fused_specs(params):
                              "stack kernel B computes")
         out["flow"] = dict(params["flow"], fused_rev=spec)
     if "fused_stages" not in params["dec"]:
+        _, _, build_specs = _decoder(params["dec"])
         out["dec"] = dict(params["dec"],
-                          fused_stages=hifigan.build_stage_specs(
-                              params["dec"]))
+                          fused_stages=build_specs(params["dec"]))
     return out
 
 
@@ -237,9 +249,8 @@ def decode_audio(params, hp: VitsHParams, z: Tensor,
     exact-length latents (the reference slices z before ``dec``,
     models.py:721).
     """
-    _require_hifigan(hp)
-    return hifigan.generator(params["dec"], z, g=g,
-                             frame_lengths=frame_lengths)
+    generator, _, _ = _decoder(params["dec"])
+    return generator(params["dec"], z, g=g, frame_lengths=frame_lengths)
 
 
 def _speaker_embedding(params, hp: VitsHParams, sid: Optional[Tensor],
@@ -346,7 +357,8 @@ def train_forward(params, hp: VitsHParams, x_ids: Tensor, x_lengths: Tensor,
     max_start = torch.clamp(spec_lengths - seg + 1, min=1)
     starts = (slice_u.to(dev, torch.float32) * max_start).to(torch.int32)
     z_slice = _slice_segments(z, starts, seg)
-    o = hifigan.generator_train(params["dec"], z_slice, g=g)
+    _, generator_train, _ = _decoder(params["dec"])
+    o = generator_train(params["dec"], z_slice, g=g)
 
     return {
         "audio": o,

@@ -39,7 +39,8 @@ from phoonnx_tpu_torch.train.step import (METRICS, TrainConfig, TrainState,
 
 LOG = logging.getLogger("trainer")
 
-QUALITIES = ("micro", "x-low", "medium", "high")
+QUALITIES = ("micro", "x-low", "medium", "medium-istft", "medium-mb-istft",
+             "high")
 
 
 def build_hparams(config: dict, quality: str) -> VitsHParams:

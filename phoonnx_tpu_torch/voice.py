@@ -304,6 +304,58 @@ class TTSVoice:
                 audio_float_array=audio,
             )
 
+    def synthesize_streaming(
+        self, text: str, syn_config: Optional[SynthesisConfig] = None,
+        chunk_frames: int = 128, overlap_frames: int = 32,
+        engine=None,
+    ) -> Iterable[AudioChunk]:
+        """Yield audio in sub-sentence chunks as the decoder produces them.
+
+        Each sentence's decoder runs ``chunk_frames`` latent frames at a
+        time (``VitsEngine.synthesize_ids_streaming``), so the first audio
+        comes before the sentence is decoded. The concatenated stream
+        equals :meth:`synthesize` for the same seed. ``engine`` may name
+        another engine of the same voice. ``normalize_audio`` is ignored:
+        the utterance's peak is unknown until its last chunk.
+        """
+        if syn_config is None:
+            syn_config = SynthesisConfig()
+
+        if self.phonetic_spellings and syn_config.enable_phonetic_spellings:
+            text = self.phonetic_spellings.apply(text)
+        if syn_config.add_diacritics:
+            text = self.phonemizer.add_diacritics(text, self.config.lang_code)
+
+        noise_scale, length_scale, noise_w = self._resolve_scales(
+            syn_config)
+
+        for phonemes in self.phonemize(text):
+            if not phonemes:
+                continue
+            phoneme_ids = self.phonemes_to_ids(phonemes)
+            if not phoneme_ids:
+                continue
+            for audio in (engine or self.engine).synthesize_ids_streaming(
+                phoneme_ids,
+                chunk_frames=chunk_frames,
+                overlap_frames=overlap_frames,
+                noise_scale=noise_scale,
+                length_scale=length_scale,
+                noise_w=noise_w,
+                speaker_id=syn_config.speaker_id or 0,
+                seed=syn_config.seed,
+                lang_id=syn_config.lang_id or 0,
+            ):
+                if syn_config.volume != 1.0:
+                    audio = audio * syn_config.volume
+                audio = np.clip(audio, -1.0, 1.0).astype(np.float32)
+                yield AudioChunk(
+                    sample_rate=self.config.sample_rate,
+                    sample_width=2,
+                    sample_channels=1,
+                    audio_float_array=audio,
+                )
+
     def synthesize_wav(
         self,
         text: str,

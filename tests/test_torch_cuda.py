@@ -335,6 +335,84 @@ def test_stage_kernel_repeats_bit_identical(device, params):
         assert torch.equal(first, second)
 
 
+# ---- the iSTFT decoders: kernel C's second caller --------------------------
+
+
+@pytest.mark.parametrize("quality,stage,frames", [
+    ("medium-istft", 0, 8), ("medium-istft", 1, 64),
+    ("medium-mb-istft", 0, 4), ("medium-mb-istft", 1, 16)])
+def test_istft_stage_kernel(device, quality, stage, frames):
+    """The iSTFT decoders' stages (no tail) at their rates for 57 frames,
+    with ragged valid lengths."""
+    spec = _stage_spec(device, quality, stage)
+    assert "postW" not in spec
+    c = 128 // 2 ** stage
+    assert spec["W"].shape[1] == c
+    t = 57 * frames
+    x = torch.randn(2, t, c, device=device) * 0.5
+    valid = torch.tensor([t, 31 * frames - 3], dtype=torch.int32,
+                         device=device)
+    before = fused_stage.launches
+    got = _hold_stage(spec, x, valid)
+    assert fused_stage.launches == before + 1
+    assert (got[1, 31 * frames - 3:] == 0).all()
+
+
+def test_istft_on_the_card_matches_the_cpu(device):
+    """The inverse DFT product and the overlap-add on the card against the
+    CPU, on phases that give the DC and Nyquist bins imaginary parts."""
+    from phoonnx_tpu_torch.ops.istft import istft
+
+    gen = torch.Generator().manual_seed(6)
+    mag = torch.exp(torch.randn(3, 2049, 9, generator=gen))
+    phase = torch.pi * torch.sin(torch.randn(3, 2049, 9, generator=gen))
+    lengths = torch.tensor([2049, 1500, 7], dtype=torch.int32)
+    mag = mag * (torch.arange(2049)[None, :] < lengths[:, None])[..., None]
+    for fl in (None, lengths):
+        want = istft(mag, phase, 16, 4, 16, fl)
+        got = istft(mag.to(device), phase.to(device), 16, 4, 16,
+                    None if fl is None else fl.to(device))
+        torch.cuda.synchronize()
+        assert got.shape == want.shape == (3, 2048 * 4)
+        scale = want.abs().max().item()
+        assert (got.cpu() - want).abs().max().item() <= 1e-5 * scale
+
+
+def test_istft_decoder_without_specs_raises(device):
+    from phoonnx_tpu_torch.models.vits import istft_decoder
+
+    hp = model.VitsHParams.preset("medium-mb-istft", n_layers=1)
+    dec = model.params_to_device(
+        model.random_params(hp, torch.Generator().manual_seed(4))["dec"],
+        device)
+    with pytest.raises(ValueError, match="kernel C"):
+        istft_decoder.istft_generator(dec, torch.zeros(1, 8, 192,
+                                                       device=device))
+
+
+@pytest.mark.parametrize("quality", ["medium-istft", "medium-mb-istft"])
+def test_istft_decode_makes_no_host_sync(device, quality):
+    """After a warm call, a padded decode (kernel C's stages, the heads,
+    the iSTFT and the PQMF bank) copies no constant from host memory and
+    makes no other host sync: the sync debug mode raises on one. The two
+    calls agree to float32 rounding (cuDNN's transposed convs need not
+    repeat bit for bit)."""
+    hp = model.VitsHParams.preset(quality, n_layers=1)
+    params = model.attach_fused_specs(model.params_to_device(
+        model.random_params(hp, torch.Generator().manual_seed(5)), device))
+    z = torch.randn(2, 40, hp.inter_channels, device=device)
+    valid = torch.tensor([40, 13], dtype=torch.int32, device=device)
+    with torch.inference_mode():
+        want = model.decode_audio(params, hp, z, frame_lengths=valid)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = model.decode_audio(params, hp, z, frame_lengths=valid)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.testing.assert_close(got, want)
+
+
 def test_tap_tile_matches_the_host_rule(device):
     """tapconv.cuh's tile choice is tiling.tap_tile: every preset conv
     and odd shapes, at this card's SM count and at 132."""

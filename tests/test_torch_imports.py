@@ -36,7 +36,8 @@ for name in names:
 assert len(names) >= 25, names
 for trained in ("ops.mas", "ops.stft", "models.vits.discriminator",
                 "train.losses", "train.step", "train.dataset",
-                "train.checkpoint", "train.trainer"):
+                "train.checkpoint", "train.trainer", "ops.istft", "ops.pqmf",
+                "models.vits.istft_decoder"):
     assert "phoonnx_tpu_torch." + trained in names, trained
 
 import torch
