@@ -32,20 +32,47 @@ another sm_90a card) and the CUDA toolkit. The script
    archive``) builds that checkout's kernels C and D and prints their
    times beside, C's three stages and D in turn (parent, this, this,
    parent), D through the parent's own wrapper and held ``torch.equal``
-   to the parent's;
-3. serving: writes a medium voice (random weights from ``--seed``) with
-   the port's ONNX writer, loads it with ``TTSVoice.load`` on the default
-   device and answers three single requests and one ragged batch of four,
+   to the parent's; captures with ``torch.cuda.graph`` a cooperative
+   launch (the grid-barrier probe, kernels A and B) and a plain ctypes
+   launch (kernel C) and replays each against an eager launch
+   (``graph:`` lines);
+3. serving, where the engine runs every program as a CUDA graph per
+   bucket key: writes a medium voice (random weights from ``--seed``)
+   with the port's ONNX writer, loads it with ``TTSVoice.load`` on the
+   default device and answers three single requests (each twice: the
+   first call captures its keys' graphs) and one ragged batch of four,
    checking finite audio of ``frames * 256`` samples, that the batch
    equals the single decodes on each utterance's span, that kernels A, B
    and C were launched on that path, and that the path agrees with the
-   plain PyTorch versions run on the host's CPU; streams its ~241-id
-   request at chunk 128 and overlap 32 (``stream:`` lines: the stream
-   against the monolithic request, the time to the first chunk, of the
-   stream and of the monolithic request); then the same for a
-   ``medium-istft`` and a ``medium-mb-istft`` voice (``istft:`` lines),
-   with kernel C held against its plain version at their stage shapes
-   for 512 frames and the card's inverse STFT against the CPU's;
+   plain PyTorch versions run on the host's CPU; replays each program's
+   graph (phase 1, phase 2, latents, fused, first chunk, decode chunk)
+   against the program called eagerly, under CUDA's sync debug mode
+   'error', and one fused graph at two length and two noise scales
+   (``graph:`` lines); times the ~241-id request through the graphs
+   against the same programs called eagerly (``request:`` lines: 41 runs
+   in turns with quartiles, the host's time by item, device busy and
+   idle share from the profiler); streams it at chunk 128 and overlap 32
+   (``stream:`` lines: the stream against the monolithic request, the
+   time to the first chunk, of the stream and of the monolithic
+   request); holds fused mode against two-phase, ``synthesize_many``
+   against its fused calls and the int16 fetch against float32, prints
+   the memory of one phase-2 graph by frame bucket and what ``warmup()``
+   captures and holds (``surface:`` lines), holds two streams of one key
+   interleaved chunk by chunk and two threads' requests of one key made
+   at once against the same calls made alone (``reentrant:`` lines), and
+   prints each graph's pool (``medium: graph`` lines); then the same
+   serving checks for a ``medium-istft`` and a ``medium-mb-istft`` voice
+   (``istft:`` lines), with kernel C held against its plain version at
+   their stage shapes for 512 frames and the card's inverse STFT against
+   the CPU's; voice
+   conversion on a medium voice of 4 speakers at gin 512 (``vc:``
+   lines: a 20 s and a 2 s input timed, the 2 s one against the CPU's
+   plain path, its graph against eager, its launches, a request as
+   speaker 2); and the two CLIs,
+   ``python -m phoonnx_tpu_torch.synthesize`` (whole and ``--stream``)
+   and ``python -m phoonnx_tpu_torch.convert``, as three processes
+   started together (``cli:`` lines); ``memory:`` lines give the
+   allocator's reserved and allocated memory after each phase;
 4. training: writes a synthetic LJSpeech-style dataset (45 utterances of
    per-phoneme tones, 1.5 to 8 s, spectrograms from the port's STFT; 5
    held out for tests, 4 validation, 36 train) and runs
@@ -58,7 +85,8 @@ another sm_90a card) and the CUDA toolkit. The script
    utterances) held to that test's margins;
 5. prints each path's launch counts (every path counted from 0), one
    ``{"kernels": [...]}`` line whose launches sum the serving paths (A, B,
-   C) and the two training runs (D), and, last, one
+   C; a graph replay adds the launches of its capture) and the two
+   training runs (D), and, last, one
    ``{"ok": true, "device": {...}}`` line.
 
 It exits non-zero, with no result line, when there is no CUDA device, when
@@ -334,27 +362,33 @@ def kernel_phases(torch, params, flow_g_params, high_stage0, seed, dev):
                 "A", "encoder_persistent")
             phase_times(torch, fused_encoder, enc_spec, inputs[0], "A")
 
-    # --- B: the inverse flow, T_y = 512, without and with g ---
-    for spec, lengths, gin in ((params["flow"]["fused_rev"], [512], 0),
-                               (flow_g_params["fused_rev"], [512, 300],
-                                flow_g_params["gin"])):
-        mask = mask_of(lengths, 512)
+    # --- B: the inverse flow, T_y = 512, without and with g (gin 256);
+    # and at gin 512, a multi-speaker voice's width, on the frame bucket of
+    # a 2 s voice conversion ---
+    for spec, lengths, gin, t_y in (
+            (params["flow"]["fused_rev"], [512], 0, 512),
+            (flow_g_params[256], [512, 300], 256, 512),
+            (flow_g_params[512], [173], 512, 256)):
+        mask = mask_of(lengths, t_y)
         c = 2 * spec["half"]
         inputs = []
         for _ in range(4):
-            x = torch.randn(len(lengths), 512, c, device=dev,
+            x = torch.randn(len(lengths), t_y, c, device=dev,
                             generator=gen) * mask
             g = None if not gin else torch.randn(
                 len(lengths), 1, gin, device=dev, generator=gen)
             inputs.append((x, mask, g))
-        nbytes = (2 * len(lengths) * 512 * c * 4 + tensor_bytes(spec)
+        nbytes = (2 * len(lengths) * t_y * c * 4 + tensor_bytes(spec)
                   + (len(lengths) * gin * 4))
         res = compare("B",
                       lambda x, m, g, s=spec: fused_flow.apply(s, x, m, g=g),
                       lambda x, m, g, s=spec: fused_flow.plain(s, x, m, g=g),
                       inputs, flow_flops(spec, lengths), nbytes,
-                      f"B={len(lengths)} T_y=512 g={'yes' if gin else 'no'}")
+                      f"B={len(lengths)} T_y={t_y} lengths={lengths} "
+                      f"g={'gin ' + str(gin) if gin else 'no'}")
         results.setdefault("B", res)
+        results["B"]["max_abs_err"] = max(results["B"]["max_abs_err"],
+                                          res["max_abs_err"])
         if not gin:
             results["B"]["device_kernels"] = kernels_in_call(
                 torch, lambda s=spec: fused_flow.apply(s, *inputs[0]), "B",
@@ -583,18 +617,21 @@ def write_voice(torch, params, hp, out_dir: Path, name: str = "medium"):
 
     out_dir.mkdir(parents=True, exist_ok=True)
     model_path = out_dir / f"{name}.onnx"
-    write_onnx(str(model_path), params_to_flat(params),
-               metadata={"model_type": "vits",
-                         "sample_rate": str(hp.sample_rate)},
-               inputs=["input", "input_lengths", "scales"],
-               outputs=["output"])
+    metadata = {"model_type": "vits", "sample_rate": str(hp.sample_rate)}
+    inputs = ["input", "input_lengths", "scales"]
+    if hp.n_speakers > 1:
+        metadata["n_speakers"] = str(hp.n_speakers)
+        inputs.append("sid")
+    write_onnx(str(model_path), params_to_flat(params), metadata=metadata,
+               inputs=inputs, outputs=["output"])
     letters = "abcdefghijklmnopqrstuvwxyz"
     id_map = {"_": 0, "^": 1, "$": 2, " ": 3}
     id_map.update({c: i + 4 for i, c in enumerate(letters)})
     config = {
         "phoneme_type": "raw", "lang_code": "en", "alphabet": "ipa",
         "phoneme_id_map": id_map, "num_symbols": len(id_map),
-        "num_speakers": 1, "audio": {"sample_rate": hp.sample_rate},
+        "num_speakers": hp.n_speakers,
+        "audio": {"sample_rate": hp.sample_rate},
         "inference": {"noise_scale": 0.667, "length_scale": 1.0,
                       "noise_w": 0.8},
     }
@@ -620,8 +657,10 @@ def serving_kernels():
 
 
 def reset_launches(kernels) -> None:
+    from phoonnx_tpu_torch import cuda as port_cuda
+
     for mod in kernels.values():
-        mod.launches = 0
+        port_cuda.LAUNCHES[mod.__name__] = 0
 
 
 def launch_counts(kernels):
@@ -670,10 +709,16 @@ def main_path(torch, model_path, config_path, seed, tag="main"):
     for target, offset in ((30, 1), (100, 2), (250, 3)):
         text = text_of(max(4, target * 2 // 5), offset)
         ids = len(ids_of(text))
+        graphs = len(voice.engine.graphs.programs)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         chunks = list(voice.synthesize(text, cfg(seed + target)))
         ms = (time.perf_counter() - t0) * 1e3
+        graphs = len(voice.engine.graphs.programs) - graphs
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        list(voice.synthesize(text, cfg(seed + target)))
+        warm_ms = (time.perf_counter() - t0) * 1e3
         check(len(chunks) == 1, f"{len(chunks)} chunks for one sentence")
         audio = chunks[0].audio_float_array
         check(audio.dtype.name == "float32", "audio is not float32")
@@ -683,8 +728,10 @@ def main_path(torch, model_path, config_path, seed, tag="main"):
               "non-finite audio")
         frames = len(audio) // hop
         print(f"{tag}: single request ids={ids} frames={frames} "
-              f"samples={len(audio)} ms={ms:.3f}", flush=True)
-        requests.append({"ids": ids, "frames": frames, "ms": ms})
+              f"samples={len(audio)} ms={ms:.3f} (graphs captured in it: "
+              f"{graphs}) again ms={warm_ms:.3f}", flush=True)
+        requests.append({"ids": ids, "frames": frames, "ms": ms,
+                         "warm_ms": warm_ms})
 
     texts = [text_of(n, 5 + i) for i, n in enumerate((60, 20, 41, 9))]
     torch.cuda.synchronize()
@@ -709,8 +756,10 @@ def main_path(torch, model_path, config_path, seed, tag="main"):
     # the engine's own frame counts against the voice's trimmed audio
     padded, frames = voice.engine.synthesize_batch(
         [ids_of(t) for t in texts], seed=seed)
-    check(padded.shape == (len(texts), max(frames) * hop),
-          f"padded batch shape {padded.shape} vs frames {frames}")
+    bucket = voice.engine._frame_bucket_clamped(max(frames))
+    check(padded.shape == (len(texts), bucket * hop),
+          f"padded batch shape {padded.shape} vs frames {frames} (frame "
+          f"bucket {bucket})")
     check([len(o) for o in outs] == [n * hop for n in frames],
           f"trimmed lengths {[len(o) for o in outs]} vs frames {frames}")
     check(worst <= BATCH_TOL,
@@ -1120,17 +1169,684 @@ def device_profile(torch, fn, label, top=20):
     return wall_us, busy_us, rows
 
 
-def profile_request(torch, voice, seed):
-    """Device time by kernel over one ~250-id request, and the device's
-    idle share of the request's wall time."""
-    from phoonnx_tpu_torch import SynthesisConfig
+# ---------------------------------------------------------------------------
+# the engine's programs as CUDA graphs
+# ---------------------------------------------------------------------------
 
+# a replay runs the kernels of the eager call in the same order; a plain op
+# may take another cuDNN or cuBLAS algorithm under capture, within rounding
+GRAPH_TOL = 1e-6
+
+
+def as_tuple(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+def max_diff(torch, got, want):
+    """(max-abs difference, torch.equal) of two program outputs: tuples
+    of tensors or None of the same structure."""
+    err, equal = 0.0, True
+    for g, w in zip(as_tuple(got), as_tuple(want), strict=True):
+        check((g is None) == (w is None), "program outputs differ in form")
+        if g is None:
+            continue
+        check(g.shape == w.shape and g.dtype == w.dtype,
+              f"program output {tuple(g.shape)} {g.dtype} vs "
+              f"{tuple(w.shape)} {w.dtype}")
+        err = max(err, (g.double() - w.double()).abs().max().item())
+        equal = equal and torch.equal(g, w)
+    return err, equal
+
+
+@contextlib.contextmanager
+def launch_counts_kept(kernels):
+    """Keep the launch counts across a block that captures kernels: a
+    capture records launches without running them."""
+    from phoonnx_tpu_torch import cuda as port_cuda
+
+    kept = launch_counts(kernels)
+    try:
+        yield
+    finally:
+        for name, mod in kernels.items():
+            port_cuda.LAUNCHES[mod.__name__] = kept[name]
+
+
+def graph_probe(torch, params, seed, dev):
+    """Each kind of launch the engine's programs make, captured with
+    torch.cuda.graph and replayed: the grid-barrier probe and kernels A
+    and B (cooperative launches of persistent blocks, csrc/persist.cuh)
+    and kernel C (a plain ctypes launch), each against an eager launch on
+    the same inputs."""
+    from phoonnx_tpu_torch import cuda as port_cuda
+    from phoonnx_tpu_torch.models.vits import (fused_encoder, fused_flow,
+                                               fused_stage)
+
+    probe = port_cuda.function("fused_flow", "phx_barrier_probe",
+                               [port_cuda.c_int, port_cuda.c_int,
+                                port_cuda.c_ptr])
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        status = probe(16, 132, torch.cuda.current_stream().cuda_stream)
+    check(status == 0, f"graph: capturing the barrier probe returned "
+          f"{status}")
+    graph.replay()
+    torch.cuda.synchronize()
+    print("graph: a cooperative launch (phx_barrier_probe, 132 blocks, 16 "
+          "grid barriers) captured and replayed", flush=True)
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    mask = (torch.arange(128, device=dev) < 101).float()[None, :, None]
+    x = torch.randn(1, 128, 192, device=dev, generator=gen) * mask
+    z_mask = (torch.arange(512, device=dev) < 400).float()[None, :, None]
+    z = torch.randn(1, 512, 192, device=dev, generator=gen) * z_mask
+    stage = params["dec"]["fused_stages"][1]
+    xc = torch.randn(1, 4096, stage["W"].shape[1], device=dev,
+                     generator=gen) * 0.5
+    valid = torch.tensor([3001], dtype=torch.int32, device=dev)
+    enc = params["enc_p"]["encoder"]["fused"]
+    flow = params["flow"]["fused_rev"]
+    cases = (("A", "cooperative",
+              lambda: fused_encoder.apply(enc, x, mask)),
+             ("B", "cooperative", lambda: fused_flow.apply(flow, z, z_mask)),
+             ("C", "ctypes", lambda: fused_stage.apply_group(stage, xc,
+                                                             valid)))
+    with launch_counts_kept(serving_kernels()):
+        for name, kind, fn in cases:
+            want = fn()
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                got = fn()
+            graph.replay()
+            torch.cuda.synchronize()
+            err, equal = max_diff(torch, got, want)
+            print(f"graph: kernel {name} ({kind} launch) captured and "
+                  f"replayed: torch.equal to the eager launch {equal}, "
+                  f"max_abs={err:.3e}", flush=True)
+            check(err <= GRAPH_TOL, f"graph: kernel {name} replay differs "
+                  f"from its eager launch by {err:.3e}")
+
+
+def replay_vs_eager(torch, engine, key, fn, args):
+    """(max-abs, torch.equal) of a replay of the engine's graph at ``key``
+    (captured here if it is new) against the same program called eagerly
+    on the same inputs. The replay runs under CUDA's sync debug mode
+    'error': no host sync inside a replayed program."""
+    engine._run(key, fn, *args)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = engine._run(key, fn, *args)
+    except RuntimeError as err:
+        fail(f"graph: a replay of {key} synchronizes the host: {err}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    got = tuple(None if t is None else t.clone() for t in as_tuple(got))
+    want = fn(*[a.to(engine.device) if isinstance(a, torch.Tensor) else a
+                for a in args])
+    torch.cuda.synchronize()
+    return max_diff(torch, got, want)
+
+
+def graphs_vs_eager(torch, engine, ids, seed, tag="graph"):
+    """Every serving program of the engine at the buckets of ``ids`` (one
+    utterance), its graph replayed against the program called eagerly:
+    phase 1, phase 2, latents, fused, first chunk and decode chunk (three
+    window positions on one graph); then one fused graph replayed at two
+    length scales and two noise scales, each against eager: the scales
+    are inputs of the graph, not baked into it."""
+    from phoonnx_tpu_torch.infer.engine import FLOW_CONTEXT
+
+    dev = engine.device
+    c = engine.hp.inter_channels
+    gen = torch.Generator().manual_seed(seed)
+    tokens, lens, sid, dp_noise, gens = engine._batch_inputs([ids], [0],
+                                                             seed)
+    t_bucket = tokens.shape[1]
+    scales = engine._scales(0.667, 1.0, 0.8)
+    host1 = (tokens, lens, sid, scales, dp_noise)
+    m_p, logs_p, w_ceil, x_mask, g, frames = engine._phase1(
+        *[a.to(dev) for a in host1])
+    frames = frames.cpu()
+    n = int(frames.max())
+    f_bucket = engine._frame_bucket_clamped(n)
+    prior = engine._prior(gens, frames, f_bucket)
+    phase2_in = (m_p, logs_p, w_ceil, x_mask, g, scales, prior)
+    fused_bucket = engine._fused_bucket(t_bucket)
+    fused_prior = torch.randn(1, fused_bucket, c, generator=gen)
+    window = STREAM_CHUNK + 2 * STREAM_OVERLAP
+    z, _ = engine._latents(*[a.to(dev) if a is not None else None
+                             for a in phase2_in], max_frames=f_bucket)
+    programs = [
+        ("phase1", ("phase1", 1, t_bucket), engine._phase1, host1),
+        ("phase2", ("phase2", 1, t_bucket, f_bucket),
+         partial(engine._phase2, max_frames=f_bucket), phase2_in),
+        ("latents", ("latents", 1, t_bucket, f_bucket),
+         partial(engine._latents, max_frames=f_bucket), phase2_in),
+        ("fused", ("fused", 1, t_bucket, fused_bucket),
+         partial(engine._fused, max_frames=fused_bucket),
+         host1 + (fused_prior,)),
+        ("first_chunk", ("first_chunk", t_bucket, STREAM_CHUNK,
+                         STREAM_OVERLAP),
+         partial(engine._first_chunk, window=window),
+         host1 + (torch.randn(1, window + FLOW_CONTEXT, c, generator=gen),)),
+    ]
+    decode_key = ("decode_chunk", 1, f_bucket, STREAM_CHUNK, STREAM_OVERLAP)
+    decode = partial(engine._decode_chunk, window=window, chunk=STREAM_CHUNK)
+    for start in (0, (f_bucket - window) // 2, f_bucket - window):
+        programs.append((f"decode_chunk start={start}", decode_key, decode,
+                         (z, torch.tensor(start), torch.tensor(STREAM_OVERLAP),
+                          torch.tensor(n), g)))
+    worst = 0.0
+    for name, key, fn, args in programs:
+        err, equal = replay_vs_eager(torch, engine, key, fn, args)
+        worst = max(worst, err)
+        print(f"{tag}: {name} key={key} replay vs eager max_abs={err:.3e} "
+              f"torch.equal={equal}", flush=True)
+        check(err <= GRAPH_TOL,
+              f"{tag}: {name} replay differs from eager by {err:.3e}")
+
+    key = ("fused", 1, t_bucket, fused_bucket)
+    fused = partial(engine._fused, max_frames=fused_bucket)
+    outs = []
+    for noise_scale, length_scale in ((0.667, 1.0), (0.667, 1.25),
+                                      (0.3, 1.0), (0.3, 1.25)):
+        s = engine._scales(noise_scale, length_scale, 0.8)
+        args = (tokens, lens, sid, s, dp_noise, fused_prior)
+        err, equal = replay_vs_eager(torch, engine, key, fused, args)
+        outs.append(engine._run(key, fused, *args)[0].clone())
+        print(f"{tag}: scales noise_scale={noise_scale} length_scale="
+              f"{length_scale} on one fused graph {key}: replay vs eager "
+              f"max_abs={err:.3e} torch.equal={equal}", flush=True)
+        check(err <= GRAPH_TOL, f"{tag}: the fused graph at scales "
+              f"({noise_scale}, {length_scale}) differs from eager by "
+              f"{err:.3e}")
+    check(all(not torch.equal(outs[0], o) for o in outs[1:]),
+          f"{tag}: two scales gave the same audio: a scale is baked in")
+    return worst
+
+
+def eager_request(torch, engine, ids, seed):
+    """``engine.synthesize_ids(ids, seed=seed)`` in two phases through the
+    same programs called eagerly on the card, as the port ran before its
+    graphs: the inputs copied to the card, phase 1, the host's read of the
+    frame count, the prior noise, phase 2, the fetch."""
+    dev = engine.device
+    tokens, lens, sid, dp_noise, gens = engine._batch_inputs([ids], [0],
+                                                             seed)
+    scales = engine._scales(0.667, 1.0, 0.8)
+    host = [t.pin_memory().to(dev, non_blocking=True)
+            for t in (tokens, lens, sid, scales, dp_noise)]
+    m_p, logs_p, w_ceil, x_mask, g, frames = engine._phase1(*host)
+    frames = frames.cpu()
+    f_bucket = engine._frame_bucket_clamped(int(frames.max()))
+    prior = engine._prior(gens, frames, f_bucket).pin_memory().to(
+        dev, non_blocking=True)
+    audio, y_lengths = engine._phase2(m_p, logs_p, w_ceil, x_mask, g,
+                                      host[3], prior, max_frames=f_bucket)
+    audio, y_lengths = audio.cpu().numpy(), y_lengths.cpu()
+    return audio[0, :int(y_lengths[0]) * engine.hp.total_upsample]
+
+
+class HostClock:
+    """Host time spent inside some of an engine's methods, by name, while
+    ``on``: wraps them on the instance, unwraps on ``close``."""
+
+    def __init__(self, engine, names):
+        self.engine = engine
+        self.on = False
+        self.ms = dict.fromkeys(names, 0.0)
+        for name in names:
+            setattr(engine, name, self._timed(name, getattr(engine, name)))
+
+    def _timed(self, name, fn):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                if self.on:
+                    self.ms[name] += (time.perf_counter() - t0) * 1e3
+        return run
+
+    def close(self):
+        for name in self.ms:
+            delattr(self.engine, name)
+
+
+def request_phase(torch, voice, seed, profile, tag="request"):
+    """The ~241-id request of the serving path: the engine's two-phase
+    graphs against the same programs called eagerly, STREAM_RUNS of each
+    in turns (host clock, quartiles); their device-busy time and the
+    device's idle share from one profiled call each; and the host's time
+    by item inside the graphed calls."""
+    engine = voice.engine
     text = text_of(100, 3)
-    cfg = SynthesisConfig(seed=seed, normalize_audio=False)
-    list(voice.synthesize(text, cfg))  # warm
-    n_ids = len(voice.phonemes_to_ids(voice.phonemize(text)[0]))
-    device_profile(torch, lambda: list(voice.synthesize(text, cfg)),
-                   f"one request of {n_ids} ids")
+    ids = voice.phonemes_to_ids(voice.phonemize(text)[0])
+
+    clock = None
+
+    def graphed():
+        torch.cuda.synchronize()
+        if clock is not None:
+            clock.on = True
+        t0 = time.perf_counter()
+        out = engine.synthesize_ids(ids, seed=seed)
+        ms = (time.perf_counter() - t0) * 1e3
+        if clock is not None:
+            clock.on = False
+        return out, ms
+
+    def eager():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = eager_request(torch, engine, ids, seed)
+        return out, (time.perf_counter() - t0) * 1e3
+
+    a, _ = graphed()
+    b, _ = eager()
+    err = float(np.abs(a - b).max())
+    check(a.shape == b.shape and err <= GRAPH_TOL,
+          f"{tag}: graphs vs eager programs {a.shape} {b.shape} max_abs "
+          f"{err:.3e}")
+    items = ("_batch_inputs", "_prior", "_run", "_ready")
+    clock = HostClock(engine, items)
+    g_ms, e_ms = [], []
+    try:
+        for _ in range(STREAM_RUNS):
+            e_ms.append(eager()[1])
+            g_ms.append(graphed()[1])
+    finally:
+        clock.close()
+    frames = len(a) // engine.hp.total_upsample
+    print(f"{tag}: ids={len(ids)} frames={frames} frame bucket "
+          f"{engine._frame_bucket_clamped(frames)}: graphs_ms="
+          f"{statistics.median(g_ms):.3f} eager_ms="
+          f"{statistics.median(e_ms):.3f} (medians of {STREAM_RUNS} in "
+          f"turns) max_abs_graphs_vs_eager={err:.3e}", flush=True)
+    print(f"{tag}: " + compare_times("graphs", g_ms, "eager", e_ms),
+          flush=True)
+    per = {k: v / STREAM_RUNS for k, v in clock.ms.items()}
+    print(f"{tag}: host ms a graphed request, by item (means of "
+          f"{STREAM_RUNS}): ids and duration noise "
+          f"{per['_batch_inputs']:.3f}, prior noise draw {per['_prior']:.3f}"
+          f", input staging and replays {per['_run']:.3f}, waits for the "
+          f"device (the phase boundary's frame count and the audio fetch) "
+          f"{per['_ready']:.3f}, the rest "
+          f"{statistics.mean(g_ms) - sum(per.values()):.3f} of a mean "
+          f"{statistics.mean(g_ms):.3f}", flush=True)
+    top = 20 if profile else 0
+    for name, fn in (("graphs", graphed), ("eager", eager)):
+        wall_us, busy_us, _ = device_profile(
+            torch, fn, f"{tag} {name}: one request of {len(ids)} ids",
+            top=top)
+    return {"graphs_ms": g_ms, "eager_ms": e_ms}
+
+
+def surface_phase(torch, voice, seed, tag="surface"):
+    """The rest of the engine's surface on the medium voice: fused mode
+    against two-phase on each utterance's valid span (same seed, the
+    budget not reached), synthesize_many of four utterances against their
+    own fused calls, the int16 fetch against float32, and warmup() of a
+    fresh engine with the graphs it captures and the memory they hold."""
+    from phoonnx_tpu_torch.infer import VitsEngine
+    from phoonnx_tpu_torch.infer.engine import _bucket_for
+
+    engine = voice.engine
+    up = engine.hp.total_upsample
+    fused = VitsEngine(engine.params, engine.hp, mode="fused")
+    utts = [voice.phonemes_to_ids(voice.phonemize(text_of(n, k))[0])
+            for k, n in enumerate((40, 100, 16, 70))]
+    worst = 0.0
+    for i, ids in enumerate(utts):
+        two = engine.synthesize_ids(ids, seed=seed + i)
+        one, frames = fused.synthesize_batch([ids], seed=seed + i)
+        t_bucket = _bucket_for(len(ids), engine.text_buckets)
+        budget = fused._fused_bucket(t_bucket)
+        check(frames[0] < budget, f"{tag}: fused budget {budget} reached")
+        check(len(two) == frames[0] * up, f"{tag}: fused frames "
+              f"{frames[0]} vs two-phase {len(two) // up}")
+        err = float(np.abs(one[0, :len(two)] - two).max())
+        worst = max(worst, err)
+        print(f"{tag}: fused vs two-phase ids={len(ids)} frames={frames[0]} "
+              f"(fused budget {budget}) max_abs={err:.3e}", flush=True)
+    check(worst <= BATCH_TOL, f"{tag}: fused differs from two-phase by "
+          f"{worst:.3e}")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    many = fused.synthesize_many(utts, seed=seed)
+    many_ms = (time.perf_counter() - t0) * 1e3
+    worst = 0.0
+    for i, (ids, out) in enumerate(zip(utts, many)):
+        want = fused.synthesize_ids(ids, seed=seed + i)
+        check(out.shape == want.shape, f"{tag}: synthesize_many member {i} "
+              f"{out.shape} vs {want.shape}")
+        worst = max(worst, float(np.abs(out - want).max()))
+    print(f"{tag}: synthesize_many of {len(utts)} in {many_ms:.3f} ms, "
+          f"each against its own fused synthesize_ids(seed=base+i): "
+          f"max_abs={worst:.3e}", flush=True)
+    check(worst <= GRAPH_TOL, f"{tag}: synthesize_many differs by {worst:.3e}")
+
+    pcm = VitsEngine(engine.params, engine.hp, fetch_pcm16=True)
+    ids = utts[1]
+    a = engine.synthesize_ids(ids, seed=seed)
+    for name, b in (("request", pcm.synthesize_ids(ids, seed=seed)),
+                    ("stream", np.concatenate(list(
+                        pcm.synthesize_ids_streaming(ids, seed=seed))))):
+        err = (float(np.abs(a - b).max()) if a.shape == b.shape
+               else float("inf"))
+        print(f"{tag}: fetch_pcm16 {name} vs float32 max_abs={err:.3e} "
+              f"(bound {1 / 32767 + 1e-6:.3e})", flush=True)
+        check(err <= 1 / 32767 + 1e-6,
+              f"{tag}: the int16 fetch of a {name} differs by {err:.3e}")
+
+    bucket_memory(torch, engine, utts[1], seed, tag)
+
+    fresh = VitsEngine(engine.params, engine.hp)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fresh.warmup()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    # a capture empties the allocator's cache first, so the device's
+    # reserved memory before and after differ by more than the graphs
+    print(f"{tag}: warmup() at batch 1, text buckets "
+          f"{list(fresh.text_buckets[:3])}: {len(fresh.graphs.programs)} "
+          f"graphs in {warm_s:.3f} s, their pools "
+          f"{fresh.graphs.pool_bytes / 2 ** 20:.1f} MiB", flush=True)
+    memory_line(torch, f"{tag} warmup()")
+    del fresh, pcm, fused
+    memory_line(torch, f"{tag} (after warmup's engine is dropped)")
+
+
+def reentrant_phase(torch, voice, seed, tag="reentrant"):
+    """One engine used by several callers at the same graph keys: two
+    streams of one key interleaved chunk by chunk (the second's first
+    chunk replays the first-chunk graph while the first stream is paused
+    after its own), and two threads making two-phase requests of one key
+    at once; each result against the same call made alone."""
+    import threading
+
+    engine = voice.engine
+    utts = [voice.phonemes_to_ids(voice.phonemize(text_of(n, k))[0])
+            for k, n in ((3, 100), (5, 90))]
+    alone = [engine.synthesize_ids(ids, seed=seed + i)
+             for i, ids in enumerate(utts)]
+    streams = [engine.synthesize_ids_streaming(
+        ids, chunk_frames=STREAM_CHUNK, overlap_frames=STREAM_OVERLAP,
+        seed=seed + i) for i, ids in enumerate(utts)]
+    chunks = [[], []]
+    live = [0, 1]
+    while live:
+        for i in list(live):
+            chunk = next(streams[i], None)
+            if chunk is None:
+                live.remove(i)
+            else:
+                chunks[i].append(chunk)
+    errs = []
+    for i, want in enumerate(alone):
+        got = np.concatenate(chunks[i])
+        errs.append(float(np.abs(got - want).max()) if got.shape ==
+                    want.shape else float("inf"))
+    print(f"{tag}: two streams of ids {[len(u) for u in utts]} at the key "
+          f"of one text bucket, interleaved chunk by chunk ("
+          f"{[len(c) for c in chunks]} chunks): max_abs vs each alone "
+          f"{', '.join(f'{e:.3e}' for e in errs)}", flush=True)
+    check(max(errs) <= BATCH_TOL, f"{tag}: an interleaved stream differs "
+          f"from its request by {max(errs):.3e}")
+
+    rounds = 5
+    got = [[None] * rounds for _ in utts]
+
+    def requests(i):
+        for r in range(rounds):
+            got[i][r] = engine.synthesize_ids(utts[i], seed=seed + i)
+
+    threads = [threading.Thread(target=requests, args=(i,))
+               for i in range(len(utts))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    err = max(float(np.abs(g - want).max()) if g.shape == want.shape
+              else float("inf") for outs, want in zip(got, alone)
+              for g in outs)
+    print(f"{tag}: {len(threads)} threads x {rounds} two-phase requests at "
+          f"one key at once: max_abs vs each alone {err:.3e}", flush=True)
+    check(err <= GRAPH_TOL, f"{tag}: a request made beside another thread's "
+          f"differs by {err:.3e}")
+
+
+def bucket_memory(torch, engine, ids, seed, tag):
+    """The memory one batch-1 phase-2 graph holds alone, at frame buckets
+    from 256 to 4,096: each captured by a fresh engine (a pool of its
+    own) on the phase-1 outputs of ``ids``."""
+    from phoonnx_tpu_torch.infer import VitsEngine
+
+    dev = engine.device
+    tokens, lens, sid, dp_noise, _ = engine._batch_inputs([ids], [0], seed)
+    scales = engine._scales(0.667, 1.0, 0.8)
+    m_p, logs_p, w_ceil, x_mask, g, _ = engine._phase1(
+        *[a.to(dev) for a in (tokens, lens, sid, scales, dp_noise)])
+    gen = torch.Generator().manual_seed(seed)
+    sizes = []
+    for f_bucket in (256, 512, 1024, 2048, 4096):
+        fresh = VitsEngine(engine.params, engine.hp)
+        fresh._run(("phase2", 1, tokens.shape[1], f_bucket),
+                   partial(fresh._phase2, max_frames=f_bucket), m_p, logs_p,
+                   w_ceil, x_mask, g, scales,
+                   torch.randn(1, f_bucket, engine.hp.inter_channels,
+                               generator=gen))
+        sizes.append(f"{f_bucket}: {fresh.graphs.pool_bytes / 2 ** 20:.1f}")
+        del fresh
+    print(f"{tag}: one batch-1 phase-2 graph alone, pool MiB by frame "
+          f"bucket: {', '.join(sizes)}", flush=True)
+
+
+def memory_line(torch, after):
+    print(f"memory: after {after}: reserved "
+          f"{torch.cuda.memory_reserved() / 2 ** 20:.1f} MiB, allocated "
+          f"{torch.cuda.memory_allocated() / 2 ** 20:.1f} MiB", flush=True)
+
+
+def graph_memory(engine, tag):
+    """Each captured graph of an engine and the memory its capture added
+    to the engine's pool (one for all its graphs; a later capture reuses
+    what an earlier one freed)."""
+    for key, program in sorted(engine.graphs.programs.items(),
+                               key=lambda kv: str(kv[0])):
+        print(f"{tag}: graph {key} pool +{program.pool_bytes / 2 ** 20:.1f} "
+              f"MiB", flush=True)
+    print(f"{tag}: {len(engine.graphs.programs)} graphs, pools "
+          f"{engine.graphs.pool_bytes / 2 ** 20:.1f} MiB", flush=True)
+
+
+# the voice-conversion voice: medium widths, the speaker embedding width a
+# multi-speaker voice trained by the trainer has (gin 512)
+VC_SPEAKERS, VC_GIN = 4, 512
+VC_SECONDS = 2.0
+# a long input: the spectrogram's cost grows with it
+VC_LONG_SECONDS = 20.0
+
+
+def tone_wave(hp, seconds, seed):
+    rng = np.random.default_rng(seed)
+    n = int(seconds * hp.sample_rate)
+    t = np.arange(n) / hp.sample_rate
+    return (0.3 * np.sin(2 * np.pi * 180 * t) * np.sin(2 * np.pi * 3 * t)
+            + 0.01 * rng.standard_normal(n)).astype(np.float32)
+
+
+def vc_phase(torch, seed, root: Path, tag="vc"):
+    """Voice conversion on a medium voice of 4 speakers at gin 512,
+    written with the port's ONNX writer and loaded on the default device:
+    a 2 s input converted by TTSVoice.voice_conversion, against the CPU's
+    plain path on the same seed; its graph against the program called
+    eagerly; the path's launches (B and C, and no A); and one synthesis
+    request as speaker 2 (the speaker term in B at gin 512). Returns
+    (the voice's files, the launches of the conversion)."""
+    from phoonnx_tpu_torch import SynthesisConfig, TTSVoice
+    from phoonnx_tpu_torch.infer import VitsEngine
+    from phoonnx_tpu_torch.infer.engine import _bucket_for
+    from phoonnx_tpu_torch.models.vits import model as vits_model
+    from phoonnx_tpu_torch.ops.stft import spectrogram
+
+    hp = vits_model.VitsHParams.preset("medium", n_speakers=VC_SPEAKERS,
+                                       gin_channels=VC_GIN)
+    gen = torch.Generator().manual_seed(seed + 11)
+    params = vits_model.random_params(hp, gen)
+    randomize_post(params["flow"], gen)
+    files = write_voice(torch, params, hp, root / "build" / "chip_smoke",
+                        name="medium-ms")
+    voice = TTSVoice.load(*map(str, files))
+    engine = voice.engine
+    check(engine.hp.n_speakers == VC_SPEAKERS
+          and engine.hp.gin_channels == VC_GIN,
+          f"{tag}: loaded {engine.hp.n_speakers} speakers at gin "
+          f"{engine.hp.gin_channels}")
+    kernels = serving_kernels()
+    for seconds in (VC_LONG_SECONDS, VC_SECONDS):
+        audio = tone_wave(hp, seconds, seed)
+        voice.voice_conversion(audio, 0, 3, seed=seed)  # capture
+        times = []
+        for _ in range(5):
+            reset_launches(kernels)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = voice.voice_conversion(audio, 0, 3, seed=seed)
+            times.append((time.perf_counter() - t0) * 1e3)
+            counts = launch_counts(kernels)
+        print(f"{tag}: {seconds} s input, {len(out)} samples out: median "
+              f"{statistics.median(times):.3f} ms of 5 (quartiles "
+              f"{'/'.join(f'{q:.3f}' for q in quartiles(times))})",
+              flush=True)
+    n_fft = (hp.spec_channels - 1) * 2
+    n_frames = spectrogram(torch.from_numpy(audio)[None], n_fft,
+                           hp.total_upsample, n_fft).shape[1]
+    check(len(out) == n_frames * hp.total_upsample,
+          f"{tag}: {len(out)} samples for {n_frames} frames")
+    check(bool(np.isfinite(out).all()) and float(np.abs(out).max()) > 0,
+          f"{tag}: converted audio is not finite and non-silent")
+    plain = VitsEngine(params, hp, device="cpu").voice_conversion(
+        audio, 0, 3, seed=seed)
+    err = float(np.abs(out - plain).max())
+    f_bucket = _bucket_for(n_frames, engine.frame_buckets)
+    print(f"{tag}: {VC_SECONDS} s input, {n_frames} frames (frame bucket "
+          f"{f_bucket}), speaker 0 -> 3: {len(out)} samples, median "
+          f"{statistics.median(times):.3f} ms of 5; card vs the CPU's plain "
+          f"path max_abs={err:.3e}", flush=True)
+    check(err <= PATH_TOL, f"{tag}: the card differs from the CPU's plain "
+          f"path by {err:.3e}")
+    print(f"{tag}: launches of one conversion {counts}", flush=True)
+    check(counts["A"] == 0, f"{tag}: voice conversion launched kernel A")
+    check(counts["B"] > 0 and counts["C"] > 0,
+          f"{tag}: voice conversion did not launch kernels B and C")
+
+    gen = torch.Generator().manual_seed(seed)
+    # the engine computes the spectrum on the card, as its graph takes it
+    spec = torch.rand(1, f_bucket, hp.spec_channels,
+                      generator=gen).to(engine.device)
+    err, equal = replay_vs_eager(
+        torch, engine, ("vc", 1, f_bucket), engine._vc,
+        (spec, torch.tensor([n_frames], dtype=torch.int32),
+         torch.tensor([1]), torch.tensor([2]),
+         torch.randn(1, f_bucket, hp.inter_channels, generator=gen)))
+    print(f"graph: vc key=('vc', 1, {f_bucket}) replay vs eager "
+          f"max_abs={err:.3e} torch.equal={equal}", flush=True)
+    check(err <= GRAPH_TOL, f"{tag}: the vc replay differs from eager by "
+          f"{err:.3e}")
+
+    cfg = SynthesisConfig(seed=seed, speaker_id=2, normalize_audio=False)
+    text = text_of(100, 4)
+    chunks = list(voice.synthesize(text, cfg))
+    check(len(chunks) == 1 and np.isfinite(
+        chunks[0].audio_float_array).all(),
+          f"{tag}: the multi-speaker request failed")
+    whole = chunks[0].audio_float_array
+    stream = np.concatenate([c.audio_float_array for c in
+                             voice.synthesize_streaming(text, cfg)])
+    err = float(np.abs(stream - whole).max()) if (
+        stream.shape == whole.shape) else float("inf")
+    print(f"{tag}: a request as speaker 2: {len(whole)} samples; streamed "
+          f"vs whole max_abs={err:.3e}", flush=True)
+    check(err <= BATCH_TOL, f"{tag}: the speaker-2 stream differs from the "
+          f"request by {err:.3e}")
+    graph_memory(engine, tag)
+    return files, counts
+
+
+def write_wav(path: Path, audio, rate: int) -> Path:
+    import wave
+
+    pcm = (np.clip(audio, -1, 1) * 32767).astype(np.int16)
+    with wave.open(str(path), "wb") as f:
+        f.setnchannels(1)
+        f.setsampwidth(2)
+        f.setframerate(rate)
+        f.writeframes(pcm.tobytes())
+    return path
+
+
+def cli_phase(medium_files, ms_files, seed, root: Path, tag="cli"):
+    """The two CLIs as a user runs them, as subprocesses started together
+    on the card: ``python -m phoonnx_tpu_torch.synthesize`` (whole and
+    ``--stream``) on the medium voice and ``python -m
+    phoonnx_tpu_torch.convert`` on the 4-speaker voice; each must exit 0
+    and write a valid, non-silent WAV."""
+    import os
+    import wave
+
+    from phoonnx_tpu_torch.models.vits.model import VitsHParams
+
+    out = root / "build" / "chip_smoke" / "cli"
+    out.mkdir(parents=True, exist_ok=True)
+    rate = VitsHParams.preset("medium").sample_rate
+    src = write_wav(out / "source.wav", tone_wave(
+        VitsHParams.preset("medium"), VC_SECONDS, seed + 1), rate)
+    text = text_of(60, 2)
+    synth = [sys.executable, "-m", "phoonnx_tpu_torch.synthesize", "-m",
+             str(medium_files[0]), "-c", str(medium_files[1]), "-t", text,
+             "--seed", str(seed), "--stats"]
+    runs = {
+        "synthesize": synth + ["-o", str(out / "whole.wav")],
+        "synthesize --stream": synth + ["-o", str(out / "stream.wav"),
+                                        "--stream"],
+        "convert": [sys.executable, "-m", "phoonnx_tpu_torch.convert", "-m",
+                    str(ms_files[0]), "-c", str(ms_files[1]), "-i", str(src),
+                    "-o", str(out / "converted.wav"), "--from-speaker", "0",
+                    "--to-speaker", "3", "--seed", str(seed)],
+    }
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen(cmd, cwd=str(ROOT), env=env,
+                                    stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT)
+             for name, cmd in runs.items()}
+    try:
+        outputs = {name: proc.communicate(timeout=400)[0].decode(
+            errors="replace") for name, proc in procs.items()}
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    wall = time.perf_counter() - t0
+    for name, proc in procs.items():
+        check(proc.returncode == 0, f"{tag}: {name} exited "
+              f"{proc.returncode}:\n{outputs[name][-3000:]}")
+        path = Path(runs[name][runs[name].index("-o") + 1])
+        with wave.open(str(path), "rb") as f:
+            frames = f.getnframes()
+            got_rate = f.getframerate()
+            pcm = np.frombuffer(f.readframes(frames), np.int16)
+        check(got_rate == rate and frames > 0 and np.abs(pcm).max() > 0,
+              f"{tag}: {name} wrote {frames} frames at {got_rate} Hz")
+        print(f"{tag}: python -m {runs[name][2]}"
+              f"{' --stream' if '--stream' in runs[name] else ''} exit 0, "
+              f"{frames} samples at {got_rate} Hz", flush=True)
+    print(f"{tag}: three CLI processes together in {wall:.1f} s", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -1346,8 +2062,7 @@ def training_phase(torch, data: Path, seed: int, profile: bool,
     mas.launch = timed_launch
     others = serving_kernels()
     try:
-        for mod in (mas, *others.values()):
-            mod.launches = 0
+        reset_launches({"D": mas, **others})
         t0 = time.perf_counter()
         run = run_training(str(data), quality=quality, batch_size=16,
                            max_epochs=1, seed=seed, log_every=1)
@@ -1563,16 +2278,17 @@ def randomize_post(flow_params, gen):
 
 
 def medium_params(torch, seed):
+    """(hparams, params, {gin: a multi-speaker flow of the same widths})
+    of the medium preset: the flows feed kernel B's speaker term at gin
+    256 and at 512, the width of a multi-speaker voice."""
     from phoonnx_tpu_torch.models.vits import posterior
 
     hp, params = model_params(torch, "medium", seed)
     gen = torch.Generator().manual_seed(seed + 1)
-    # a multi-speaker flow of the same widths for kernel B's g input
-    gin = 256
-    flow_g = randomize_post(posterior.init_residual_coupling_block(
+    flows = {gin: randomize_post(posterior.init_residual_coupling_block(
         gen, hp.inter_channels, hp.hidden_channels, 5, 1, 4,
-        gin_channels=gin), gen)
-    return hp, params, flow_g, gin
+        gin_channels=gin), gen) for gin in (256, 512)}
+    return hp, params, flows
 
 
 def main() -> None:
@@ -1616,16 +2332,18 @@ def main() -> None:
     parents = {name: load() for name, load in parents.items()}
 
     dev = torch.device("cuda")
-    hp, params, flow_g, gin = medium_params(torch, args.seed)
+    hp, params, flows = medium_params(torch, args.seed)
     on_card = vits_model.attach_fused_specs(
         vits_model.params_to_device(params, dev))
     from phoonnx_tpu_torch.models.vits import fused_flow
 
-    flow_g_params = {"fused_rev": fused_flow.build_spec(
-        vits_model.params_to_device(flow_g, dev)), "gin": gin}
+    flow_g_params = {gin: fused_flow.build_spec(
+        vits_model.params_to_device(flow, dev))
+        for gin, flow in flows.items()}
     results = kernel_phases(torch, on_card, flow_g_params,
                             high_stage0(torch, args.seed, dev), args.seed,
                             dev)
+    graph_probe(torch, on_card, args.seed, dev)
     stage_conv_profile(torch, port_cuda, on_card["dec"]["fused_stages"],
                        on_card["dec"]["upsample_rates"], dev, args.seed,
                        parent=parent_stage(port_cuda, parents["fused_stage"])
@@ -1644,11 +2362,17 @@ def main() -> None:
         torch, params, hp, ROOT / "build" / "chip_smoke")
     voice, paths["medium serving path"], _ = main_path(
         torch, model_path, config_path, args.seed)
+    memory_line(torch, "the medium serving path")
     path_vs_plain(torch, voice, args.seed + 1)
-    if args.profile:
-        profile_request(torch, voice, args.seed + 2)
+    graphs_vs_eager(torch, voice.engine, voice.phonemes_to_ids(
+        voice.phonemize(text_of(100, 3))[0]), args.seed + 2)
+    request_phase(torch, voice, args.seed + 2, args.profile)
     paths["medium streaming path"], medium_ms = stream_phase(
         torch, voice, args.seed + 3)
+    surface_phase(torch, voice, args.seed + 4)
+    reentrant_phase(torch, voice, args.seed + 5)
+    graph_memory(voice.engine, "medium")
+    memory_line(torch, "the medium voice's phases")
     del voice
     for quality in ("medium-istft", "medium-mb-istft"):
         stages, served = istft_phase(torch, quality, args.seed, ROOT,
@@ -1656,6 +2380,13 @@ def main() -> None:
         paths.update(served)
         results["C"]["max_abs_err"] = max(results["C"]["max_abs_err"],
                                           stages["max_abs_err"])
+        memory_line(torch, f"the {quality} voice's phases")
+
+    # voice conversion (kernels B and C) and the two CLIs
+    ms_files, paths["medium 4-speaker voice conversion path"] = vc_phase(
+        torch, args.seed, ROOT)
+    memory_line(torch, "voice conversion")
+    cli_phase((model_path, config_path), ms_files, args.seed, ROOT)
 
     # training: kernel D, at medium and on the MB-iSTFT decoder
     data = training_dataset(torch, ROOT, args.seed)

@@ -12,6 +12,7 @@ Importing this module touches neither ``nvcc`` nor the card: the CPU
 test suite imports every module of the port.
 """
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -33,6 +34,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _LOCK = threading.Lock()
 _LOADED: Dict[str, ctypes.CDLL] = {}
 _FUNCS: Dict[tuple, object] = {}
+
+# Launches of each kernel, by the name of its wrapper's module: a wrapper
+# adds one where it launches its kernel (:func:`count_launch`), and a CUDA
+# graph's replay adds those of its capture (``infer/graphs.py``). Each
+# wrapper module reads its own count as ``<module>.launches``.
+LAUNCHES: collections.Counter = collections.Counter()
 
 c_ptr = ctypes.c_void_p
 c_int = ctypes.c_int
@@ -155,6 +162,20 @@ def scratch(device: torch.device, sizes: Sequence[int]):
     buf = torch.empty(max(total, 1), device=device)
     base = buf.data_ptr()
     return buf, [base + 4 * off for off in offsets]
+
+
+def count_launch(module: str) -> None:
+    """One launch of the kernel that the wrapper module ``module`` (its
+    ``__name__``) launches."""
+    LAUNCHES[module] += 1
+
+
+def launch_count(module: str, name: str) -> int:
+    """The ``launches`` attribute of a wrapper module, for its module
+    ``__getattr__``: ``LAUNCHES[module]``."""
+    if name == "launches":
+        return LAUNCHES[module]
+    raise AttributeError(f"module {module!r} has no attribute {name!r}")
 
 
 def ptr(t: Optional[torch.Tensor]) -> Optional[int]:

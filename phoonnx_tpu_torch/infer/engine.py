@@ -1,44 +1,71 @@
 """VITS synthesis engine on a PyTorch device (the GPU unless asked otherwise).
 
-PyTorch port of ``phoonnx_tpu/infer/engine.py``. Synthesis runs in two
-phases: phase 1 (text encoder + duration predictor) gives the frame count
-of every utterance, the host reads it, and phase 2 (prior expansion +
-inverse flow + HiFi-GAN) decodes at the batch's longest frame count.
-PyTorch runs eagerly, so a batch is padded to its longest member rather
-than to compile buckets. The frame cap of the JAX engine (its largest
-frame bucket, 4096) stays, with its truncation warning.
+PyTorch port of ``phoonnx_tpu/infer/engine.py``. Variable-length synthesis
+is dispatched over static shape buckets, as in the JAX engine:
 
-Noise is drawn per utterance from a ``torch.Generator`` seeded with
-``seed + i`` for the batch's i-th utterance, first the duration noise
-[T_x, 2] and then the prior noise [frames, C]. An utterance therefore gets
-the same noise alone as inside a batch, and the padded batch decode equals
-the single decode on the valid span.
+* phase 1 (text encoder + duration predictor) per (batch, text bucket);
+* phase 2 (prior expansion + inverse flow + decoder) per (batch, text
+  bucket, frame bucket), the frame bucket chosen on the host from the
+  predicted durations;
+* ``mode="fused"``: the whole pipeline per (batch, text bucket) with a
+  frame budget of ``frames_per_token`` frames a text-bucket slot, rounded
+  to a frame bucket, and no host read between the phases;
+* streaming: one program for the first audio (durations, the latents of
+  a prefix, the first window), then the latents at the frame bucket and
+  one decode-chunk program for every window, its position an input;
+* voice conversion per frame bucket.
 
-Streaming (``synthesize_ids_streaming``) decodes the latent frames in
-overlapping windows. The decoders are translation-invariant conv stacks,
-so with the same seed the concatenated stream equals ``synthesize_ids``.
+Each program is a method that takes tensors only (``_phase1``,
+``_phase2``, ``_fused``, ``_latents``, ``_first_chunk``,
+``_decode_chunk``, ``_vc``). On the CPU the engine calls it directly. On
+CUDA each program key is captured once as a CUDA graph and then replayed
+(``graphs.py``): there is no eager path on the card. The buckets are the
+graph keys. A replay returns fresh tensors, and the engine's replays run
+one at a time on its own stream, so threads may share an engine and
+streams of one key may interleave. A padded decode equals the
+exact-length decode on the valid span (kernel C masks every stage to
+it), so the padding changes no valid sample.
+
+Noise is drawn on the host per utterance from a ``torch.Generator``
+seeded with ``seed + i`` for the batch's i-th utterance: first the
+duration noise [T_x, 2], then the prior noise row by row
+(:func:`normal_rows`), so an utterance gets the same noise alone as inside
+a batch. A draw of n rows is the first n rows of a longer draw from the
+same state, so fused mode (which draws its whole frame budget before the
+frame count is known) and streaming (which draws the first window's
+prefix first) get the prior rows that two-phase synthesis draws, and
+with the same seed every mode gives the same audio.
 """
 
 import logging
 import math
+from functools import partial
 from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from phoonnx_tpu_torch.infer.graphs import Graphs
 from phoonnx_tpu_torch.models.vits import model as vits_model
 from phoonnx_tpu_torch.models.vits.model import VitsHParams
+from phoonnx_tpu_torch.ops.stft import spectrogram
 
 LOG = logging.getLogger(__name__)
 
-# the JAX engine's largest frame bucket: longer predictions are truncated
-MAX_FRAMES = 4096
+DEFAULT_TEXT_BUCKETS = (32, 64, 128, 256, 512, 1024)
+DEFAULT_FRAME_BUCKETS = (64, 128, 256, 384, 512, 768, 1024, 1536, 2048,
+                         3072, 4096)
 
 # right context (frames) the inverse coupling flow reads past any output
 # frame: 4 couplings x WN(4 layers, k=5, d=1) x (5-1)/2. Latents computed
 # on a prefix with this much extra context equal the whole utterance's
 # latents on the prefix's first frames.
 FLOW_CONTEXT = 32
+
+# ROADMAP.md port-queue item that brings bf16 and the precision knob
+BF16_ITEM = "ROADMAP.md, port queue: 'bf16'"
+
+PCM16_SCALE = 32767.0
 
 
 def resolve_device(device=None) -> torch.device:
@@ -56,20 +83,270 @@ def resolve_device(device=None) -> torch.device:
     return device
 
 
-class VitsEngine:
-    """Two-phase VITS synthesis on one device."""
+def _bucket_for(value: int, buckets: Sequence[int]) -> int:
+    for bucket in buckets:
+        if value <= bucket:
+            return bucket
+    raise ValueError(f"length {value} exceeds largest bucket {buckets[-1]}")
 
-    def __init__(self, params, hp: VitsHParams, dtype: str = "float32",
-                 device=None):
+
+def normal_rows(generator: torch.Generator, rows: int,
+                channels: int) -> torch.Tensor:
+    """``rows`` x ``channels`` standard normals from ``generator``, such
+    that a draw of n rows is the first n rows of a longer draw from the
+    same state. The CPU generator fills normals in blocks of 16, so a draw
+    whose size is a multiple of 16 is the start of any longer such draw;
+    the draw is rounded up to one (for every preset's 192, 96 or 32
+    channels it is the plain draw)."""
+    n = rows * channels
+    flat = torch.randn(-(-n // 16) * 16, generator=generator)
+    return flat[:n].view(rows, channels)
+
+
+def to_pcm16(audio: torch.Tensor) -> torch.Tensor:
+    """Clip to 16-bit PCM and truncate toward zero, as the JAX engine's
+    ``_to_pcm16`` (``astype(int16)``) does."""
+    return torch.clamp(audio * PCM16_SCALE, -PCM16_SCALE,
+                       PCM16_SCALE).to(torch.int16)
+
+
+def _audio_np(audio: np.ndarray) -> np.ndarray:
+    if audio.dtype == np.int16:
+        return audio.astype(np.float32) / PCM16_SCALE
+    return audio.astype(np.float32, copy=False)
+
+
+class VitsEngine:
+    """VITS synthesis over static shape buckets, as CUDA graphs on the
+    GPU."""
+
+    # batched synthesis runs as ONE device program whose key includes the
+    # lane count (the serving batcher pads lanes to power-of-two buckets
+    # because of this)
+    compiled_batching = True
+
+    def __init__(
+        self,
+        params,
+        hp: VitsHParams,
+        text_buckets: Sequence[int] = DEFAULT_TEXT_BUCKETS,
+        frame_buckets: Sequence[int] = DEFAULT_FRAME_BUCKETS,
+        dtype: str = "float32",
+        mode: str = "two_phase",
+        frames_per_token: int = 12,
+        fetch_pcm16: bool = False,
+        device=None,
+        matmul_precision: Optional[str] = None,
+    ):
+        """mode: ``"two_phase"`` (default) predicts the durations, reads
+        the frame count on the host and decodes at the tightest frame
+        bucket; ``"fused"`` runs one program per call with a frame budget
+        of ``frames_per_token * text_bucket`` rounded to a frame bucket,
+        and no host read before the audio is fetched.
+
+        fetch_pcm16: quantise the audio to int16 on the device before the
+        fetch (half the bytes; the WAV output is 16-bit anyway); the host
+        converts back to float32 in [-1, 1].
+
+        dtype and matmul_precision: the port computes in float32 at full
+        precision only so far; other values raise.
+        """
         if dtype != "float32":
             raise ValueError(
                 f"dtype {dtype!r}: phoonnx_tpu_torch computes in float32 only "
-                "so far (ROADMAP.md, port queue: 'bf16')")
+                f"so far ({BF16_ITEM})")
+        if matmul_precision is not None:
+            raise ValueError(
+                f"matmul_precision {matmul_precision!r}: phoonnx_tpu_torch "
+                f"computes float32 products at full precision only so far "
+                f"({BF16_ITEM})")
+        if mode not in ("two_phase", "fused"):
+            raise ValueError(f"mode {mode!r}: 'two_phase' or 'fused'")
         self.hp = hp
+        self.text_buckets = tuple(text_buckets)
+        self.frame_buckets = tuple(frame_buckets)
+        self.mode = mode
+        self.frames_per_token = frames_per_token
+        self.fetch_pcm16 = fetch_pcm16
         self.device = resolve_device(device)
-        self.max_frames = MAX_FRAMES
         self.params = vits_model.attach_fused_specs(
             vits_model.params_to_device(params, self.device))
+        self.graphs = Graphs(self.device) if self.device.type == "cuda" \
+            else None
+
+    @property
+    def max_frames(self) -> int:
+        """The largest frame bucket: longer predictions are truncated."""
+        return self.frame_buckets[-1]
+
+    # -- programs: tensors in, tensors out ---------------------------------
+
+    def _sid(self, sid: torch.Tensor) -> Optional[torch.Tensor]:
+        return sid if self.hp.n_speakers > 1 else None
+
+    def _phase1(self, ids, lengths, sid, scales, dp_noise):
+        """Encoder + durations. ``scales`` [3] is (noise_scale,
+        length_scale, noise_w). Returns (m_p, logs_p, w_ceil, x_mask, g,
+        frames), ``frames`` the int32 [B] frame counts (at least 1) the
+        host reads to choose the frame bucket."""
+        m_p, logs_p, w_ceil, x_mask, g = vits_model.infer_durations(
+            self.params, self.hp, ids, lengths, scales[1], scales[2],
+            sid=self._sid(sid), dp_noise=dp_noise)
+        frames = torch.clamp(torch.sum(w_ceil, dim=-1), min=1.0).to(
+            torch.int32)
+        return m_p, logs_p, w_ceil, x_mask, g, frames
+
+    def _phase2(self, m_p, logs_p, w_ceil, x_mask, g, scales, prior_noise,
+                max_frames: int, pcm16: bool = False):
+        """Prior expansion + inverse flow + decoder at ``max_frames``.
+        Returns (audio [B, max_frames * upsample], y_lengths int32 [B])."""
+        audio, y_lengths = vits_model.infer_decode(
+            self.params, self.hp, m_p, logs_p, w_ceil, x_mask, max_frames,
+            scales[0], g=g, prior_noise=prior_noise)
+        return (to_pcm16(audio) if pcm16 else audio), y_lengths
+
+    def _fused(self, ids, lengths, sid, scales, dp_noise, prior_noise,
+               max_frames: int, pcm16: bool = False):
+        """The whole pipeline in one program (``model.infer`` without the
+        alignment matrix): (audio, y_lengths)."""
+        m_p, logs_p, w_ceil, x_mask, g, _ = self._phase1(
+            ids, lengths, sid, scales, dp_noise)
+        return self._phase2(m_p, logs_p, w_ceil, x_mask, g, scales,
+                            prior_noise, max_frames, pcm16)
+
+    def _latents(self, m_p, logs_p, w_ceil, x_mask, g, scales, prior_noise,
+                 max_frames: int):
+        """(z [B, max_frames, C] masked, y_lengths int32 [B])."""
+        return vits_model.infer_latents(
+            self.params, self.hp, m_p, logs_p, w_ceil, x_mask, max_frames,
+            scales[0], g=g, prior_noise=prior_noise)
+
+    def _first_chunk(self, ids, lengths, sid, scales, dp_noise, prior_noise,
+                     window: int, pcm16: bool = False):
+        """Time to the first audio in one program: encoder, durations, the
+        latents of a prefix of ``prior_noise.shape[1]`` frames (the first
+        window and ``FLOW_CONTEXT`` frames of the flow's right context)
+        and the decode of the first window. Returns (audio [1, window *
+        upsample], m_p, logs_p, w_ceil, x_mask, g, frames)."""
+        m_p, logs_p, w_ceil, x_mask, g, frames = self._phase1(
+            ids, lengths, sid, scales, dp_noise)
+        z_pre, y_pre = self._latents(m_p, logs_p, w_ceil, x_mask, g, scales,
+                                     prior_noise, prior_noise.shape[1])
+        audio = vits_model.decode_audio(
+            self.params, self.hp, z_pre[:, :window].contiguous(), g=g,
+            frame_lengths=torch.clamp(y_pre, max=window))
+        return ((to_pcm16(audio) if pcm16 else audio), m_p, logs_p, w_ceil,
+                x_mask, g, frames)
+
+    def _decode_chunk(self, z: torch.Tensor, start, offset, y_len,
+                      g: Optional[torch.Tensor], window: int, chunk: int,
+                      pcm16: bool = False) -> torch.Tensor:
+        """Decode the latent window ``z[:, start:start + window]`` and keep
+        its frames ``[offset, offset + chunk)``, as audio samples.
+
+        ``start``, ``offset`` and ``y_len`` (the utterance's frame count)
+        are ints or 0-d integer tensors; on the card they are inputs of
+        the graph, so one graph serves every window of a latent buffer:
+        the window and the kept span are gathered by index on the device
+        (the JAX program's ``dynamic_slice_in_dim``).
+
+        With at least the decoder's receptive field of context on each
+        side of the kept span (or the utterance's true edge), the kept
+        audio equals the monolithic decode there. The window lies inside
+        the latent buffer; frames past the utterance are masked by the
+        decoder's ``frame_lengths`` contract.
+        """
+        up = self.hp.total_upsample
+        dev = z.device
+        start = torch.as_tensor(start, device=dev)
+        zc = torch.index_select(z, 1, start + torch.arange(window,
+                                                           device=dev))
+        valid = torch.clamp(torch.as_tensor(y_len, device=dev) - start, 0,
+                            window).to(torch.int32).expand(z.shape[0])
+        audio = vits_model.decode_audio(self.params, self.hp, zc, g=g,
+                                        frame_lengths=valid.contiguous())
+        keep = (torch.as_tensor(offset, device=dev) * up
+                + torch.arange(chunk * up, device=dev))
+        audio = torch.index_select(audio, 1, keep)
+        return to_pcm16(audio) if pcm16 else audio
+
+    def _vc(self, spec, lengths, sid_src, sid_tgt, noise,
+            pcm16: bool = False) -> torch.Tensor:
+        audio, _ = vits_model.voice_conversion(
+            self.params, self.hp, spec, lengths, sid_src, sid_tgt,
+            noise=noise)
+        return to_pcm16(audio) if pcm16 else audio
+
+    # -- dispatch ----------------------------------------------------------
+
+    def _run(self, key: tuple, fn, *args):
+        """``fn(*args)``: directly on the CPU, through the key's CUDA graph
+        on the card (fresh outputs either way)."""
+        if self.graphs is None:
+            return fn(*args)
+        return self.graphs.run(key, fn, args)
+
+    def _fetch(self, *tensors) -> List[np.ndarray]:
+        """Tensors -> numpy, every device copy started before one wait."""
+        return [self._ready(c) for c in [self._copy_out(t) for t in tensors]]
+
+    @staticmethod
+    def _copy_out(t: torch.Tensor):
+        """Start the copy of ``t`` to the host: (host tensor, the event
+        that marks it done, or None on the CPU)."""
+        if not t.is_cuda:
+            return t, None
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(t.device))
+        return host, done
+
+    @staticmethod
+    def _ready(copy) -> np.ndarray:
+        host, done = copy
+        if done is not None:
+            done.synchronize()
+        return host.numpy()
+
+    @staticmethod
+    def _scales(noise_scale, length_scale, noise_w) -> torch.Tensor:
+        """The programs' ``scales`` input: inputs of the graph, never
+        baked into it."""
+        return torch.tensor([noise_scale, length_scale, noise_w],
+                            dtype=torch.float32)
+
+    def _batch_inputs(self, batch_ids, speaker_ids, seed: int):
+        """Host inputs of a batch padded to its text bucket: (ids int64
+        [B, t_bucket], lengths int32 [B], sid int64 [B], dp_noise [B,
+        t_bucket, 2], each utterance's generator after its duration
+        noise)."""
+        batch = len(batch_ids)
+        t_bucket = _bucket_for(max(len(u) for u in batch_ids),
+                               self.text_buckets)
+        ids = torch.zeros((batch, t_bucket), dtype=torch.int64)
+        lengths = torch.zeros((batch,), dtype=torch.int32)
+        dp_noise = torch.zeros((batch, t_bucket, 2))
+        gens = [torch.Generator().manual_seed(seed + i) for i in range(batch)]
+        for i, utt in enumerate(batch_ids):
+            ids[i, :len(utt)] = torch.as_tensor(list(utt), dtype=torch.int64)
+            lengths[i] = len(utt)
+            dp_noise[i, :len(utt)] = torch.randn((len(utt), 2),
+                                                 generator=gens[i])
+        sid = torch.zeros((batch,), dtype=torch.int64)
+        if speaker_ids is not None:
+            sid[:] = torch.as_tensor(list(speaker_ids), dtype=torch.int64)
+        return ids, lengths, sid, dp_noise, gens
+
+    def _prior(self, gens, frames, rows: int) -> torch.Tensor:
+        """[B, rows, C] prior noise: utterance i's first min(frames[i],
+        rows) rows from ``gens[i]``, the rest 0 (masked)."""
+        c = self.hp.inter_channels
+        prior = torch.zeros((len(gens), rows, c))
+        for i, (gen, n) in enumerate(zip(gens, frames)):
+            n = min(int(n), rows)
+            prior[i, :n] = normal_rows(gen, n, c)
+        return prior
 
     def _check_speakers(self, speaker_ids) -> None:
         """An out-of-range id would index another speaker's embedding."""
@@ -82,16 +359,26 @@ class VitsEngine:
                     f"speaker_id {sid} out of range: voice has {n} "
                     f"speakers (0..{n - 1})")
 
-    def _frame_budget(self, frames: int) -> int:
-        """The batch's frame count, capped with a truncation warning (the
-        JAX engine's largest-bucket clamp): length_scale is request
-        controlled, so an over-long prediction must degrade, not fail."""
-        if frames > self.max_frames:
+    def _frame_bucket_clamped(self, frames: int) -> int:
+        """Frame bucket for a predicted length; clamps to the largest
+        bucket with a truncation warning instead of raising:
+        length_scale is request controlled, so an over-long prediction
+        must degrade, not fail."""
+        if frames > self.frame_buckets[-1]:
             LOG.warning(
                 "predicted %d frames exceed the largest frame bucket %d "
-                "— audio will be truncated", frames, self.max_frames)
-            return self.max_frames
-        return max(frames, 1)
+                "— audio will be truncated", frames, self.frame_buckets[-1])
+            return self.frame_buckets[-1]
+        return _bucket_for(max(frames, 1), self.frame_buckets)
+
+    def _fused_bucket(self, t_bucket: int) -> int:
+        """Fused mode's frame budget: from the text *bucket*, so each
+        (batch, text bucket) pair has one program."""
+        budget = t_bucket * self.frames_per_token
+        return _bucket_for(min(budget, self.frame_buckets[-1]),
+                           self.frame_buckets)
+
+    # -- public API --------------------------------------------------------
 
     def synthesize_ids(
         self,
@@ -112,27 +399,110 @@ class VitsEngine:
             speaker_ids=[speaker_id], seed=seed)
         return audio[0][: lengths[0] * self.hp.total_upsample]
 
-    def _decode_chunk(self, z: torch.Tensor, start: int, offset: int,
-                      y_len: int, g: Optional[torch.Tensor], window: int,
-                      chunk: int) -> torch.Tensor:
-        """Decode the latent window ``z[:, start:start + window]`` and keep
-        its frames ``[offset, offset + chunk)``, as audio samples.
+    @torch.inference_mode()
+    def synthesize_batch(
+        self,
+        batch_ids: Sequence[Sequence[int]],
+        noise_scale: float = 0.667,
+        length_scale: float = 1.0,
+        noise_w: float = 0.8,
+        speaker_ids: Optional[Sequence[int]] = None,
+        seed: Optional[int] = None,
+        lang_id: Optional[int] = None,
+    ) -> Tuple[np.ndarray, List[int]]:
+        """Batched synthesis padded to the batch's buckets. ``lang_id`` is
+        accepted for API parity and unused.
 
-        With at least the decoder's receptive field of context on each
-        side of the kept span (or the utterance's true edge), the kept
-        audio equals the monolithic decode there. The window lies inside
-        the latent buffer and is never zero-padded: zero latent frames are
-        not the convs' own zero padding, since biases propagate through
-        the stack. Frames past the utterance (``y_len``) are masked by the
-        decoder's ``frame_lengths`` contract.
+        Returns (waveforms [B, frame_bucket * total_upsample] float32, the
+        frame count of each utterance).
         """
+        batch = len(batch_ids)
+        if speaker_ids is not None:
+            self._check_speakers(speaker_ids)
+        if seed is None:
+            seed = int(np.random.randint(0, 2 ** 31 - 1 - batch))
+        ids, lengths, sid, dp_noise, gens = self._batch_inputs(
+            batch_ids, speaker_ids, seed)
+        t_bucket = ids.shape[1]
+        scales = self._scales(noise_scale, length_scale, noise_w)
+
+        if self.mode == "fused":
+            f_bucket = self._fused_bucket(t_bucket)
+            prior = self._prior(gens, [f_bucket] * batch, f_bucket)
+            audio, y_lengths = self._fetch(*self._run(
+                ("fused", batch, t_bucket, f_bucket),
+                partial(self._fused, max_frames=f_bucket,
+                        pcm16=self.fetch_pcm16),
+                ids, lengths, sid, scales, dp_noise, prior))
+            frame_lengths = [int(n) for n in y_lengths]
+            if any(n >= f_bucket for n in frame_lengths):
+                LOG.warning(
+                    "frame budget %d reached — audio may be truncated; "
+                    "raise frames_per_token or use mode='two_phase'",
+                    f_bucket)
+            return _audio_np(audio), frame_lengths
+
+        m_p, logs_p, w_ceil, x_mask, g, frames = self._run(
+            ("phase1", batch, t_bucket), self._phase1, ids, lengths, sid,
+            scales, dp_noise)
+        # host decision: the frame bucket from the predicted durations
+        frames, = self._fetch(frames)
+        f_bucket = self._frame_bucket_clamped(int(frames.max()))
+        prior = self._prior(gens, frames, f_bucket)
+        audio, y_lengths = self._fetch(*self._run(
+            ("phase2", batch, t_bucket, f_bucket),
+            partial(self._phase2, max_frames=f_bucket,
+                    pcm16=self.fetch_pcm16),
+            m_p, logs_p, w_ceil, x_mask, g, scales, prior))
+        return _audio_np(audio), [int(n) for n in y_lengths]
+
+    @torch.inference_mode()
+    def synthesize_many(
+        self,
+        utterances: Sequence[Sequence[int]],
+        noise_scale: float = 0.667,
+        length_scale: float = 1.0,
+        noise_w: float = 0.8,
+        speaker_id: int = 0,
+        seed: Optional[int] = None,
+    ) -> List[np.ndarray]:
+        """Pipelined synthesis of many utterances: each goes through the
+        fused program with seed ``seed + i``, and the copy of its outputs
+        to the host starts before the next utterance's inputs are made;
+        the host waits only when it reads the results, in order. Device
+        work, copies and the host's noise draws for the next utterance
+        overlap."""
+        self._check_speakers((speaker_id,))
+        if seed is None:
+            seed = int(np.random.randint(0, 2 ** 31 - 1 - len(utterances)))
+        scales = self._scales(noise_scale, length_scale, noise_w)
+        in_flight = []
+        for i, utt in enumerate(utterances):
+            ids, lengths, sid, dp_noise, gens = self._batch_inputs(
+                [utt], [speaker_id], seed + i)
+            t_bucket = ids.shape[1]
+            f_bucket = self._fused_bucket(t_bucket)
+            prior = self._prior(gens, [f_bucket], f_bucket)
+            audio, y_lengths = self._run(
+                ("fused", 1, t_bucket, f_bucket),
+                partial(self._fused, max_frames=f_bucket,
+                        pcm16=self.fetch_pcm16),
+                ids, lengths, sid, scales, dp_noise, prior)
+            in_flight.append((self._copy_out(audio),
+                              self._copy_out(y_lengths)))
+
+        outputs: List[np.ndarray] = []
         up = self.hp.total_upsample
-        zc = z[:, start:start + window]
-        valid = torch.full((z.shape[0],), min(max(y_len - start, 0), window),
-                           dtype=torch.int32, device=z.device)
-        audio = vits_model.decode_audio(self.params, self.hp, zc, g=g,
-                                        frame_lengths=valid)
-        return audio[:, offset * up:(offset + chunk) * up]
+        for audio, y_lengths in in_flight:
+            wav = _audio_np(self._ready(audio))[0]
+            n_frames = int(self._ready(y_lengths)[0])
+            if n_frames * up >= len(wav):
+                LOG.warning(
+                    "frame budget %d reached — audio may be truncated; "
+                    "raise frames_per_token or use mode='two_phase'",
+                    len(wav) // up)
+            outputs.append(wav[:n_frames * up])
+        return outputs
 
     @torch.inference_mode()
     def synthesize_ids_streaming(
@@ -151,50 +521,45 @@ class VitsEngine:
         ``chunk_frames`` latent frames as the decoder produces them.
         ``lang_id`` is accepted for API parity and unused.
 
-        For the time to the first audio, the durations are read by the
-        host, then only a prefix of the latents (the first window and
-        ``FLOW_CONTEXT`` frames of the flow's right context) goes through
-        the flow before the first window is decoded. The remaining chunks
-        decode windows of the whole utterance's latents with
-        ``overlap_frames`` frames of context on each side (32 covers every
-        preset's decoder). The noise is drawn as :meth:`synthesize_batch`
-        draws it, and the prefix's prior noise is a slice of the same
-        draw, so with the same ``seed`` the concatenated stream equals
-        :meth:`synthesize_ids`.
+        The first audio takes one program (``_first_chunk``): the
+        durations, the flow over a prefix of the latents (the first window
+        and ``FLOW_CONTEXT`` frames of its right context) and the first
+        window's decode, with no host read before it. Its prior noise is
+        the first rows of the utterance's draw (:func:`normal_rows`). Then
+        the host reads the frame count, the latents are computed at the
+        frame bucket, and one decode-chunk program decodes the remaining
+        windows with ``overlap_frames`` frames of context on each side (32
+        covers every preset's decoder), the copies of their audio to the
+        host started together. With the same ``seed`` the concatenated
+        stream equals :meth:`synthesize_ids`. The first chunk's state is
+        the generator's own (fresh tensors, as every program returns), so
+        other streams may run between its chunks.
         """
         self._check_speakers((speaker_id,))
         if seed is None:
             seed = int(np.random.randint(0, 2 ** 31 - 1))
-        dev = self.device
         hp = self.hp
         up = hp.total_upsample
         chunk = max(1, chunk_frames)
         overlap = max(0, overlap_frames)
         window = chunk + 2 * overlap
 
-        gen = torch.Generator().manual_seed(seed)
-        ids = torch.as_tensor([list(phoneme_ids)], dtype=torch.int64)
-        lengths = torch.tensor([len(phoneme_ids)], dtype=torch.int32)
-        dp_noise = torch.randn((len(phoneme_ids), 2), generator=gen)[None]
-        sid = torch.tensor([speaker_id], dtype=torch.int64, device=dev)
-        m_p, logs_p, w_ceil, x_mask, g = vits_model.infer_durations(
-            self.params, hp, ids.to(dev), lengths.to(dev), length_scale,
-            noise_w, sid=sid, dp_noise=dp_noise.to(dev))
-        # host decision: the frame count from the predicted durations
-        n_frames = self._frame_budget(
-            int(torch.clamp(torch.sum(w_ceil, dim=-1), min=1.0)[0]))
-        prior = torch.randn((n_frames, hp.inter_channels),
-                            generator=gen)[None].to(dev)
-
-        # first audio: the flow over the prefix only, then the first window
-        n_pre = min(window + FLOW_CONTEXT, n_frames)
-        z_pre, _ = vits_model.infer_latents(
-            self.params, hp, m_p, logs_p, w_ceil, x_mask, n_pre, noise_scale,
-            g=g, prior_noise=prior[:, :n_pre])
-        first_window = min(window, n_pre)
-        audio = self._decode_chunk(z_pre, 0, 0, n_frames, g, first_window,
-                                   first_window)
-        wav = audio[0].float().cpu().numpy()
+        ids, lengths, sid, dp_noise, (gen,) = self._batch_inputs(
+            [phoneme_ids], [speaker_id], seed)
+        t_bucket = ids.shape[1]
+        scales = self._scales(noise_scale, length_scale, noise_w)
+        prior_state = gen.get_state()
+        prior_pre = normal_rows(gen, window + FLOW_CONTEXT,
+                                hp.inter_channels)[None]
+        audio, m_p, logs_p, w_ceil, x_mask, g, frames = self._run(
+            ("first_chunk", t_bucket, chunk, overlap),
+            partial(self._first_chunk, window=window,
+                    pcm16=self.fetch_pcm16),
+            ids, lengths, sid, scales, dp_noise, prior_pre)
+        wav, frames = self._fetch(audio, frames)
+        wav = _audio_np(wav)[0]
+        f_bucket = self._frame_bucket_clamped(int(frames[0]))
+        n_frames = min(int(frames[0]), f_bucket)
         yield wav[:min(chunk, n_frames) * up]
         if n_frames <= window:
             # the first window held the whole utterance
@@ -202,15 +567,20 @@ class VitsEngine:
                 yield wav[chunk * up:n_frames * up]
             return
 
-        z, _ = vits_model.infer_latents(
-            self.params, hp, m_p, logs_p, w_ceil, x_mask, n_frames,
-            noise_scale, g=g, prior_noise=prior)
+        gen.set_state(prior_state)
+        prior = self._prior([gen], [n_frames], f_bucket)
+        z, _ = self._run(("latents", 1, t_bucket, f_bucket),
+                         partial(self._latents, max_frames=f_bucket),
+                         m_p, logs_p, w_ceil, x_mask, g, scales, prior)
+        decode = partial(self._decode_chunk, window=window, chunk=chunk,
+                         pcm16=self.fetch_pcm16)
+        y_len = torch.tensor(n_frames)
         in_flight = []
         for i in range(1, math.ceil(n_frames / chunk)):
             # the window stays inside the latent buffer, so the kept span
-            # has >= overlap frames of true context (or the utterance's
-            # edge) on each side
-            start = min(max(i * chunk - overlap, 0), n_frames - window)
+            # has >= overlap frames of context (or the utterance's edge)
+            # on each side
+            start = min(max(i * chunk - overlap, 0), f_bucket - window)
             offset = i * chunk - start
             # a final chunk whose nominal span overruns the buffer keeps
             # the buffer's last `chunk` frames instead and skips, when
@@ -219,12 +589,14 @@ class VitsEngine:
             if offset > window - chunk:
                 offset = window - chunk
                 skip = (i * chunk - (start + offset)) * up
-            in_flight.append((self._decode_chunk(
-                z, start, offset, n_frames, g, window, chunk), skip))
+            audio = self._run(("decode_chunk", 1, f_bucket, chunk, overlap),
+                              decode, z, torch.tensor(start),
+                              torch.tensor(offset), y_len, g)
+            in_flight.append((self._copy_out(audio), skip))
         emitted = chunk * up
         total = n_frames * up
-        for audio, skip in in_flight:
-            wav = audio[0].float().cpu().numpy()
+        for copy, skip in in_flight:
+            wav = _audio_np(self._ready(copy))[0]
             take = min(len(wav) - skip, total - emitted)
             if take <= 0:
                 break
@@ -232,60 +604,51 @@ class VitsEngine:
             yield wav[skip:skip + take]
 
     @torch.inference_mode()
-    def synthesize_batch(
+    def voice_conversion(
         self,
-        batch_ids: Sequence[Sequence[int]],
-        noise_scale: float = 0.667,
-        length_scale: float = 1.0,
-        noise_w: float = 0.8,
-        speaker_ids: Optional[Sequence[int]] = None,
+        audio: np.ndarray,
+        sid_src: int,
+        sid_tgt: int,
         seed: Optional[int] = None,
-        lang_id: Optional[int] = None,
-    ) -> Tuple[np.ndarray, List[int]]:
-        """Batched synthesis padded to the longest member. ``lang_id`` is
-        accepted for API parity and unused.
+    ) -> np.ndarray:
+        """Convert an utterance between speakers (models.py:724-732).
 
-        Returns (waveforms [B, frames * total_upsample] float32, the true
-        frame count of each utterance).
+        audio: float32 waveform [N] at the model sample rate. Requires a
+        multi-speaker voice. The spectrogram is computed on the engine's
+        device, before the program as the JAX engine does, with the STFT
+        geometry of the model itself (the posterior encoder takes
+        filter_length // 2 + 1 bins at one frame per decoder upsample
+        period), and padded to its frame bucket. Returns the converted
+        waveform trimmed to the true length.
         """
-        batch = len(batch_ids)
-        if speaker_ids is not None:
-            self._check_speakers(speaker_ids)
-        if seed is None:
-            seed = int(np.random.randint(0, 2 ** 31 - 1 - batch))
-        dev = self.device
+        if self.hp.n_speakers <= 1:
+            raise ValueError("voice conversion requires a multi-speaker "
+                             "model")
+        self._check_speakers((sid_src, sid_tgt))
         hp = self.hp
-        t_x = max(len(ids) for ids in batch_ids)
-        ids = torch.zeros((batch, t_x), dtype=torch.int64)
-        lengths = torch.zeros((batch,), dtype=torch.int32)
-        gens = [torch.Generator().manual_seed(seed + i) for i in range(batch)]
-        dp_noise = torch.zeros((batch, t_x, 2))
-        for i, utt in enumerate(batch_ids):
-            ids[i, :len(utt)] = torch.as_tensor(list(utt), dtype=torch.int64)
-            lengths[i] = len(utt)
-            dp_noise[i, :len(utt)] = torch.randn((len(utt), 2),
-                                                 generator=gens[i])
-        sid = None
-        if speaker_ids is not None:
-            sid = torch.as_tensor(list(speaker_ids), dtype=torch.int64,
-                                  device=dev)
+        n_fft = (hp.spec_channels - 1) * 2
+        hop = hp.total_upsample
+        wav = torch.as_tensor(np.asarray(audio, np.float32))[None, :]
+        spec = spectrogram(wav.to(self.device), n_fft, hop, n_fft)  # [1, T, C]
+        n_frames = spec.shape[1]
+        f_bucket = _bucket_for(n_frames, self.frame_buckets)
+        spec = torch.nn.functional.pad(spec, (0, 0, 0, f_bucket - n_frames))
+        if seed is None:
+            seed = int(np.random.randint(0, 2 ** 31 - 1))
+        noise = self._prior([torch.Generator().manual_seed(seed)],
+                            [n_frames], f_bucket)
+        out, = self._fetch(self._run(
+            ("vc", 1, f_bucket), partial(self._vc, pcm16=self.fetch_pcm16),
+            spec, torch.tensor([n_frames], dtype=torch.int32),
+            torch.tensor([sid_src]), torch.tensor([sid_tgt]), noise))
+        return _audio_np(out)[0, :n_frames * hop]
 
-        m_p, logs_p, w_ceil, x_mask, g = vits_model.infer_durations(
-            self.params, hp, ids.to(dev), lengths.to(dev), length_scale,
-            noise_w, sid=sid, dp_noise=dp_noise.to(dev))
-
-        # host decision: the frame budget from the predicted durations
-        frames = [int(n) for n in torch.clamp(
-            torch.sum(w_ceil, dim=-1), min=1.0).cpu()]
-        budget = self._frame_budget(max(frames))
-        prior_noise = torch.zeros((batch, budget, hp.inter_channels))
-        for i, n in enumerate(frames):
-            n = min(n, budget)
-            prior_noise[i, :n] = torch.randn((n, hp.inter_channels),
-                                             generator=gens[i])
-
-        audio, y_lengths = vits_model.infer_decode(
-            self.params, hp, m_p, logs_p, w_ceil, x_mask, budget,
-            noise_scale, g=g, prior_noise=prior_noise.to(dev))
-        return (audio.float().cpu().numpy(),
-                [int(n) for n in y_lengths.cpu()])
+    def warmup(self, batch_sizes: Sequence[int] = (1,),
+               text_buckets: Optional[Sequence[int]] = None) -> None:
+        """Run (and on the card, capture) the programs of the given grid:
+        one request of full-length rows per (batch size, text bucket)."""
+        for batch in batch_sizes:
+            for t_bucket in (text_buckets or self.text_buckets[:3]):
+                # full-length rows: shorter ids re-bucket to the
+                # smallest bucket and nothing else gets captured
+                self.synthesize_batch([[1] * t_bucket] * batch, seed=0)

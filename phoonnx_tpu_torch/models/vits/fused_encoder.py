@@ -15,6 +15,7 @@ kernel runs or the call raises.
 """
 
 import ctypes
+import functools
 import math
 from typing import Optional
 
@@ -32,9 +33,10 @@ MAX_WINDOW = 7
 PHASES = ("qkv", "attention", "out_proj", "add_ln1", "ffn1", "ffn2",
           "add_ln2")
 
-# Launches of the kernel (one per apply on the card). Read and reset by
-# callers that need to show the path went through the kernel.
-launches = 0
+# ``launches``: the kernel's launches (one per apply on the card),
+# kept in ``cuda.LAUNCHES``. Read by callers that show a path went
+# through the kernel.
+__getattr__ = functools.partial(cuda.launch_count, __name__)
 
 
 def build_spec(enc_params):
@@ -134,7 +136,6 @@ def launch(spec, x: torch.Tensor, x_mask: torch.Tensor,
     ``stamps`` (int64, ``len(phases(spec)) + 1`` on the card) the kernel
     also writes the device clock (ns) at its start and at the end of
     each phase."""
-    global launches
     b, t, h = x.shape
     dev = x.device
     cuda.require(x, "x", dev)
@@ -179,5 +180,5 @@ def launch(spec, x: torch.Tensor, x_mask: torch.Tensor,
                     b, t, h, f, n_layers, n_heads, window, ffn_k, *plan,
                     1.0 / math.sqrt(dk), cuda.stream_of(x))
     cuda.check(LIBRARY, status, "fused_encoder_forward")
-    launches += 1
+    cuda.count_launch(__name__)
     return out

@@ -14,6 +14,7 @@ it reads and which it updates. :func:`apply` launches the kernel for a
 CUDA tensor and runs the plain version for a CPU tensor.
 """
 
+import functools
 from typing import Optional
 
 import torch
@@ -23,8 +24,10 @@ from phoonnx_tpu_torch.models.vits import nn
 
 LIBRARY = "fused_flow"
 
-# Launches of the kernel (one per apply on the card).
-launches = 0
+# ``launches``: the kernel's launches (one per apply on the card),
+# kept in ``cuda.LAUNCHES``. Read by callers that show a path went
+# through the kernel.
+__getattr__ = functools.partial(cuda.launch_count, __name__)
 
 
 def _gate_pairs(w: torch.Tensor, hidden: int) -> torch.Tensor:
@@ -177,7 +180,6 @@ def launch(spec, x: torch.Tensor, x_mask: torch.Tensor,
     ``stamps`` (int64, ``len(phases(spec)) + 1`` on the card) the kernel
     also writes the device clock (ns) at its start and at the end of
     each phase."""
-    global launches
     b, t, c = x.shape
     dev = x.device
     half, hidden = spec["half"], spec["hidden"]
@@ -208,5 +210,5 @@ def launch(spec, x: torch.Tensor, x_mask: torch.Tensor,
                     spec["n_layers"], spec["n_flows"], grid,
                     cuda.stream_of(x))
     cuda.check(LIBRARY, status, "fused_flow_reverse")
-    launches += 1
+    cuda.count_launch(__name__)
     return out

@@ -24,8 +24,10 @@ from phoonnx_tpu_torch.models.vits import modules, nn
 
 LIBRARY = "fused_stage"
 
-# Launches of the kernel (one per apply_group on the card).
-launches = 0
+# ``launches``: the kernel's launches (one per apply_group on the card),
+# kept in ``cuda.LAUNCHES``. Read by callers that show a path went
+# through the kernel.
+__getattr__ = functools.partial(cuda.launch_count, __name__)
 
 
 def build_group_spec(blocks, lrelu_slope: float, post=None):
@@ -143,7 +145,6 @@ def _check_conv(channels: int, taps: int, dil: int) -> None:
 def launch(spec, x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """Kernel C on the card (no plain path); ``valid`` int32 [B], at most
     T (``apply_group`` clamps it)."""
-    global launches
     b, t, c = x.shape
     dev = x.device
     cuda.require(x, "x", dev)
@@ -184,5 +185,5 @@ def launch(spec, x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
                     spec.get("post_pad", 0), spec.get("post_slope", 0.0),
                     cuda.ptr(audio), b, t, c, spec["slope"], cuda.stream_of(x))
     cuda.check(LIBRARY, status, "fused_stage_group")
-    launches += 1
+    cuda.count_launch(__name__)
     return audio if has_post else acc

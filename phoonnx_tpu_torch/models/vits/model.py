@@ -391,6 +391,39 @@ def slice_audio_segments(y: Tensor, starts: Tensor, segment_samples: int,
     return torch.gather(y, 1, idx)
 
 
+def voice_conversion(params, hp: VitsHParams, spec: Tensor,
+                     spec_lengths: Tensor, sid_src: Tensor, sid_tgt: Tensor,
+                     noise: Optional[Tensor] = None,
+                     generator: Optional[torch.Generator] = None):
+    """Convert an utterance between speakers (models.py:724-732).
+
+    spec [B, T, C_spec] -> (waveform [B, T * total_upsample] in the target
+    speaker's voice, y_mask [B, T, 1]); needs a multi-speaker model (the
+    posterior encoder's weights). The posterior encoder and the forward
+    flow run with the source speaker, the reverse flow (kernel B) and the
+    decoder (kernel C) with the target. ``noise`` [B, T, inter_channels]
+    can be injected; otherwise it is drawn from ``generator``.
+    """
+    if hp.n_speakers <= 1:
+        raise ValueError("voice conversion requires a multi-speaker model")
+    b, t_y = spec.shape[:2]
+    y_mask = nn.sequence_mask(spec_lengths, t_y)[..., None].to(spec.dtype)
+    g_src = nn.embedding(params["emb_g"], sid_src.long())[:, None, :]
+    g_tgt = nn.embedding(params["emb_g"], sid_tgt.long())[:, None, :]
+    if noise is None:
+        noise = _draw(generator, (b, t_y, hp.inter_channels), spec.dtype,
+                      spec.device, "noise")
+    z, _, _ = posterior.posterior_encoder(
+        params["enc_q"], spec, y_mask,
+        noise.to(device=spec.device, dtype=spec.dtype), g=g_src)
+    z_p = posterior.coupling_flow(params["flow"], z, y_mask, g=g_src)
+    z_hat = posterior.coupling_flow(params["flow"], z_p, y_mask, g=g_tgt,
+                                    reverse=True)
+    audio = decode_audio(params, hp, z_hat * y_mask, g=g_tgt,
+                         frame_lengths=spec_lengths)
+    return audio, y_mask
+
+
 def expand_prior(m_p: Tensor, logs_p: Tensor, w_ceil: Tensor,
                  y_mask: Tensor, max_frames: int):
     """Expand (m_p, logs_p) [B, T_x, C] to frames [B, T_y, C] by gather.
@@ -451,7 +484,9 @@ def infer(params, hp: VitsHParams, x_ids: Tensor, x_lengths: Tensor,
     Returns (audio [B, max_frames * total_upsample], y_lengths int32 [B],
     attn [B, max_frames, T_x]). Noise can be injected (``dp_noise``
     [B, T_x, 2], ``prior_noise`` [B, max_frames, C]); otherwise it is
-    drawn from ``generator``.
+    drawn from ``generator``. The scales are floats or 0-d tensors: the
+    engine passes 0-d tensors on the device, which a CUDA graph reads at
+    every replay, where a float would be baked into the capture.
     """
     b, t_x = x_ids.shape
     dtype = params["enc_p"]["emb"]["weight"].dtype

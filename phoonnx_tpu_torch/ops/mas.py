@@ -18,6 +18,7 @@ checks it. :func:`maximum_path_numpy` is a copy of the JAX package's host
 oracle (the reference kernel's triangle loops), kept for the tests.
 """
 
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
@@ -30,8 +31,10 @@ Tensor = torch.Tensor
 LIBRARY = "mas"
 NEG_INF = -1e9
 
-# Launches of the kernel (one per maximum_path on the card).
-launches = 0
+# ``launches``: the kernel's launches (one per maximum_path on the card),
+# kept in ``cuda.LAUNCHES``. Read by callers that show a path went
+# through the kernel.
+__getattr__ = functools.partial(cuda.launch_count, __name__)
 
 # The kernel's tiling limits (csrc/mas.cu): rows of up to FAST_WARPS
 # warps of FAST_CELLS cells a lane, wider ones on WIDE_CELLS cells a lane
@@ -162,7 +165,6 @@ def launch(value: Tensor, y_lens: Tensor, x_lens: Tensor,
     ``stamps`` (int64, ``len(phases()) + 1`` on the card) the
     kernel also writes the device clock (ns) at block 0's start and at
     the end of each phase."""
-    global launches
     b, t_y, t_x = value.shape
     dev = value.device
     cuda.require(value, "value", dev)
@@ -181,7 +183,7 @@ def launch(value: Tensor, y_lens: Tensor, x_lens: Tensor,
                     cuda.ptr(path), cuda.ptr(bits), cuda.ptr(stamps), b, t_y,
                     t_x, n_warps, cells, chunk, cuda.stream_of(value))
     cuda.check(LIBRARY, status, "mas_path")
-    launches += 1
+    cuda.count_launch(__name__)
     return path
 
 

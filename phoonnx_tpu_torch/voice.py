@@ -145,6 +145,7 @@ class TTSVoice:
         phoneme_type_str: Optional[str] = None,
         dtype: str = "float32",
         device=None,
+        matmul_precision: Optional[str] = None,
     ) -> "TTSVoice":
         """Load an ONNX voice (reference recipe) onto the engine.
 
@@ -153,7 +154,9 @@ class TTSVoice:
         front-end settings. Weights import by name into the parameter tree.
 
         device: None means the GPU, and raises RuntimeError when there is
-        none; ``"cpu"`` runs the plain PyTorch path.
+        none; ``"cpu"`` runs the plain PyTorch path. ``dtype`` and
+        ``matmul_precision`` other than float32 at full precision raise
+        (:class:`VitsEngine`).
         """
         from phoonnx_tpu_torch.infer.engine import VitsEngine, resolve_device
         from phoonnx_tpu_torch.models.vits.load import (
@@ -208,7 +211,8 @@ class TTSVoice:
                 f"ported yet ({FALLBACK_ITEM})")
         hp = infer_hparams_from_flat(named, **overrides)
         params = params_from_flat(named, hp, strict=False)
-        engine = VitsEngine(params, hp, dtype=dtype, device=device)
+        engine = VitsEngine(params, hp, dtype=dtype, device=device,
+                            matmul_precision=matmul_precision)
         return TTSVoice(engine=engine, config=config)
 
     # ------------------------------------------------------------------
@@ -449,6 +453,14 @@ class TTSVoice:
                 wav = wav * syn_config.volume
             outputs.append(np.clip(wav, -1.0, 1.0).astype(np.float32))
         return outputs
+
+    def voice_conversion(self, audio: np.ndarray, sid_src: int,
+                         sid_tgt: int, seed: Optional[int] = None
+                         ) -> np.ndarray:
+        """Re-speak a waveform in another speaker's voice
+        (models.py:724-732; multi-speaker voices only)."""
+        return self.engine.voice_conversion(audio, sid_src, sid_tgt,
+                                            seed=seed)
 
     def _resolve_scales(self, syn_config: SynthesisConfig):
         """(noise_scale, length_scale, noise_w): per-call override if set,

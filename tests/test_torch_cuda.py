@@ -468,3 +468,257 @@ def test_kernels_launch_on_the_tensors_device(device, params):
         assert torch.equal(mas.launch(value, lens, xl),
                            mas.maximum_path_plain(value, lens, xl))
         torch.cuda.synchronize(other)
+
+
+# ---------------------------------------------------------------------------
+# the engine's programs as CUDA graphs
+# ---------------------------------------------------------------------------
+
+# a replay runs the kernels of the eager call in the same order; cuDNN may
+# pick another algorithm for a plain op under capture, within rounding
+GRAPH_TOL = 1e-6
+
+
+def _tensors(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+def _agree(got, want):
+    """Max-abs difference of two program outputs (tuples of tensors or
+    None), which must have the same structure."""
+    err = 0.0
+    for g, w in zip(_tensors(got), _tensors(want), strict=True):
+        assert (g is None) == (w is None)
+        if g is not None:
+            assert g.shape == w.shape and g.dtype == w.dtype
+            err = max(err, (g.double() - w.double()).abs().max().item())
+    return err
+
+
+def _replay_vs_eager(engine, key, fn, *args):
+    """Capture ``fn`` at ``key`` (the first call), replay it once under
+    CUDA's sync debug mode 'error' (no host sync inside a replay), and
+    return the max-abs difference of the replay from an eager call of the
+    same program on the same inputs."""
+    engine._run(key, fn, *args)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = engine._run(key, fn, *args)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    got = tuple(None if t is None else t.clone() for t in _tensors(got))
+    dev_args = [a.to(engine.device) if isinstance(a, torch.Tensor) else a
+                for a in args]
+    want = fn(*dev_args)
+    torch.cuda.synchronize()
+    return _agree(got, want)
+
+
+@pytest.fixture(scope="module")
+def engine(device):
+    from phoonnx_tpu_torch.infer import VitsEngine
+
+    hp = model.VitsHParams.preset("medium", n_layers=2)
+    p = model.random_params(hp, torch.Generator().manual_seed(6))
+    return VitsEngine(p, hp, text_buckets=(32, 64), frame_buckets=(128, 256))
+
+
+def _host_inputs(engine, lengths, scales=(0.667, 1.0, 0.8), seed=0):
+    ids = [[4 + (7 * i + j) % 20 for j in range(n)]
+           for i, n in enumerate(lengths)]
+    tokens, lens, sid, dp_noise, _ = engine._batch_inputs(ids, None, seed)
+    return tokens, lens, sid, engine._scales(*scales), dp_noise
+
+
+def test_cooperative_launch_is_captured(device, params):
+    """Kernels A and B are cooperative launches of persistent blocks
+    (persist.cuh): stream capture records them, and a replay equals the
+    eager launch (the grid-barrier probe, then A and B)."""
+    from phoonnx_tpu_torch import cuda as port_cuda
+
+    probe = port_cuda.function("fused_flow", "phx_barrier_probe",
+                               [port_cuda.c_int, port_cuda.c_int,
+                                port_cuda.c_ptr])
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        status = probe(4, 8, torch.cuda.current_stream().cuda_stream)
+    assert status == 0
+    graph.replay()
+    torch.cuda.synchronize()
+    mask = _mask([40, 23], 40, device)
+    x = torch.randn(2, 40, 192, device=device) * mask
+    enc, flow = params["enc_p"]["encoder"]["fused"], params["flow"]["fused_rev"]
+
+    def run():
+        return fused_encoder.apply(enc, x, mask), fused_flow.apply(flow, x,
+                                                                   mask)
+
+    want = run()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = run()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_programs_replay_equal_eager(engine):
+    from functools import partial
+
+    tokens, lens, sid, scales, dp_noise = _host_inputs(engine, [30, 17])
+    assert _replay_vs_eager(engine, ("t_phase1", 2, 32), engine._phase1,
+                            tokens, lens, sid, scales, dp_noise) <= GRAPH_TOL
+    m_p, logs_p, w_ceil, x_mask, g, _ = engine._phase1(
+        *[a.to(engine.device) for a in (tokens, lens, sid, scales,
+                                        dp_noise)])
+    prior = torch.randn(2, 256, 192)
+    for name, fn in (("t_phase2", engine._phase2),
+                     ("t_latents", engine._latents)):
+        err = _replay_vs_eager(engine, (name, 2, 32, 256),
+                               partial(fn, max_frames=256), m_p, logs_p,
+                               w_ceil, x_mask, g, scales, prior)
+        assert err <= GRAPH_TOL, name
+    err = _replay_vs_eager(engine, ("t_fused", 2, 32, 256),
+                           partial(engine._fused, max_frames=256), tokens,
+                           lens, sid, scales, dp_noise, prior)
+    assert err <= GRAPH_TOL
+    one = _host_inputs(engine, [30])
+    err = _replay_vs_eager(engine, ("t_first", 32, 64, 32),
+                           partial(engine._first_chunk, window=128), *one,
+                           torch.randn(1, 160, 192))
+    assert err <= GRAPH_TOL
+    z = torch.randn(1, 256, 192, device=engine.device)
+    decode = partial(engine._decode_chunk, window=128, chunk=64)
+    for start, offset in ((0, 0), (64, 32), (128, 64)):
+        err = _replay_vs_eager(engine, ("t_decode", 1, 256, 64, 32), decode,
+                               z, torch.tensor(start), torch.tensor(offset),
+                               torch.tensor(200), None)
+        assert err <= GRAPH_TOL, (start, offset)
+
+
+def test_launch_counts_add_up_under_replay(engine):
+    """A replay runs no Python: its graph adds the launches of its
+    capture. Every request, first or replayed, counts one launch of A and
+    of B and one of C a decoder stage."""
+    ids = [5, 9, 11, 4, 7, 13, 6, 8, 10]
+    counts = []
+    for _ in range(3):
+        before = (fused_encoder.launches, fused_flow.launches,
+                  fused_stage.launches)
+        engine.synthesize_ids(ids, seed=1)
+        counts.append((fused_encoder.launches - before[0],
+                       fused_flow.launches - before[1],
+                       fused_stage.launches - before[2]))
+    assert counts == [(1, 1, 3)] * 3
+
+
+def test_graph_outputs_survive_other_replays(engine):
+    """A replay returns fresh tensors: two streams of one first-chunk key
+    pulled in turns (the second's first chunk replays the graph while the
+    first stream holds its state) and two threads' requests of one key at
+    once each equal the same call made alone."""
+    import threading
+
+    utts = [[4 + (7 * i) % 20 for i in range(n)] for n in (50, 45)]
+    alone = [engine.synthesize_ids(u, seed=50 + i) for i, u in enumerate(utts)]
+    streams = [engine.synthesize_ids_streaming(u, chunk_frames=16,
+                                               overlap_frames=8, seed=50 + i)
+               for i, u in enumerate(utts)]
+    chunks = [[], []]
+    live = [0, 1]
+    while live:
+        for i in list(live):
+            chunk = next(streams[i], None)
+            if chunk is None:
+                live.remove(i)
+            else:
+                chunks[i].append(chunk)
+    for i, want in enumerate(alone):
+        assert len(chunks[i]) > 2
+        got = np.concatenate(chunks[i])
+        assert got.shape == want.shape
+        assert np.abs(got - want).max() <= 1e-4
+
+    got = [[], []]
+
+    def requests(i):
+        for _ in range(4):
+            got[i].append(engine.synthesize_ids(utts[i], seed=50 + i))
+
+    threads = [threading.Thread(target=requests, args=(i,)) for i in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for outs, want in zip(got, alone):
+        assert len(outs) == 4
+        for out in outs:
+            assert np.abs(out - want).max() <= GRAPH_TOL
+
+
+def test_scales_are_graph_inputs(engine):
+    """One fused graph replayed at two length scales and two noise scales:
+    each replay equals the eager program at its scales."""
+    from functools import partial
+
+    fused = partial(engine._fused, max_frames=256)
+    key = ("t_scales", 1, 32, 256)
+    prior = torch.randn(1, 256, 192)
+    outs = []
+    for scales in ((0.667, 1.0, 0.8), (0.667, 1.5, 0.8), (0.2, 1.0, 0.8),
+                   (0.2, 0.7, 0.3)):
+        tokens, lens, sid, s, dp_noise = _host_inputs(engine, [25], scales)
+        assert _replay_vs_eager(engine, key, fused, tokens, lens, sid, s,
+                                dp_noise, prior) <= GRAPH_TOL, scales
+        outs.append(engine._run(key, fused, tokens, lens, sid, s, dp_noise,
+                                prior)[0].clone())
+    # the scales reached the audio: no two replays gave the same
+    assert all(not torch.equal(outs[0], o) for o in outs[1:])
+
+
+def test_flow_kernel_gin512(device):
+    """Kernel B with the speaker term at gin 512, the width of a
+    multi-speaker voice the trainer builds (voice conversion and every
+    multi-speaker request reach it)."""
+    gen = torch.Generator().manual_seed(7)
+    flow = posterior.init_residual_coupling_block(gen, 192, 192, 5, 1, 4,
+                                                  gin_channels=512)
+    for f in flow["flows"]:
+        for key in ("weight", "bias"):
+            f["post"][key] = 0.05 * torch.randn(f["post"][key].shape,
+                                                generator=gen)
+    spec = fused_flow.build_spec(model.params_to_device(flow, device))
+    for lengths in ([172], [512, 300], [1]):
+        t = max(lengths)
+        mask = _mask(lengths, t, device)
+        x = torch.randn(len(lengths), t, 192, device=device) * mask
+        g = torch.randn(len(lengths), 1, 512, device=device)
+        got = fused_flow.apply(spec, x, mask, g=g)
+        want = fused_flow.plain(spec, x, mask, g=g)
+        torch.cuda.synchronize()
+        assert (got - want).abs().max().item() < TOL, lengths
+
+
+def test_voice_conversion_graph_equals_eager(device):
+    from functools import partial
+
+    from phoonnx_tpu_torch.infer import VitsEngine
+
+    hp = model.VitsHParams.preset("medium", n_layers=1, n_speakers=4,
+                                  gin_channels=512)
+    eng = VitsEngine(model.random_params(hp, torch.Generator().manual_seed(8)),
+                     hp, frame_buckets=(128,))
+    # on the card's spectrum, as voice_conversion computes it
+    spec = torch.rand(1, 128, hp.spec_channels).to(device)
+    noise = torch.randn(1, 128, 192)
+    err = _replay_vs_eager(eng, ("vc", 1, 128), partial(eng._vc), spec,
+                           torch.tensor([100], dtype=torch.int32),
+                           torch.tensor([0]), torch.tensor([3]), noise)
+    assert err <= GRAPH_TOL
+    before = (fused_encoder.launches, fused_flow.launches)
+    out = eng.voice_conversion(np.zeros(100 * 256, np.float32) + 0.1, 1, 2,
+                               seed=0)
+    assert np.isfinite(out).all() and len(out) % 256 == 0
+    assert fused_encoder.launches == before[0]
+    assert fused_flow.launches > before[1]

@@ -109,3 +109,15 @@ def test_phonemizer_base_copy():
     for name, src in base_orig.items():
         if name not in ("phonikud", "tashkeel"):
             assert base_copy[name] == _rewrite(src), name
+
+
+@pytest.mark.parametrize("name", ["STATS_WINDOW", "SynthesisStats", "timed"])
+def test_observability_copy(name):
+    """The synthesis timers are verbatim; the profiler and memory hooks are
+    rewritten for torch (``device_trace``, ``device_memory_stats``) and
+    ``enable_compilation_cache`` has no counterpart."""
+    original = _top_level(JAX_PKG / "observability.py")
+    copy = _top_level(PORT_PKG / "observability.py")
+    assert copy[name] == _rewrite(original[name])
+    assert "enable_compilation_cache" not in copy
+    assert {"device_trace", "device_memory_stats"} <= set(copy)

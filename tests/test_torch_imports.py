@@ -37,7 +37,8 @@ assert len(names) >= 25, names
 for trained in ("ops.mas", "ops.stft", "models.vits.discriminator",
                 "train.losses", "train.step", "train.dataset",
                 "train.checkpoint", "train.trainer", "ops.istft", "ops.pqmf",
-                "models.vits.istft_decoder"):
+                "models.vits.istft_decoder", "infer.graphs",
+                "observability", "synthesize", "convert"):
     assert "phoonnx_tpu_torch." + trained in names, trained
 
 import torch

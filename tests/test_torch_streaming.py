@@ -3,9 +3,9 @@
 The port's counterparts of tests/test_streaming.py, on the CPU (the plain
 versions of the kernels). ``VitsEngine.synthesize_ids_streaming`` decodes
 the latent frames in overlapping windows; with the same seed the
-concatenated stream must equal ``synthesize_ids``. The port has no frame
-buckets, so its latent buffer is the utterance's frame count and the
-final chunk's offset clamp fires whenever the last chunk is partial; each
+concatenated stream must equal ``synthesize_ids``. The latent buffer is
+the utterance's frame bucket, as in the JAX engine, and the final chunk's
+offset clamp fires when the last chunk's window would overrun it; each
 multi-chunk case checks that the windowed loop really ran. The chunk
 arithmetic itself is held to the JAX engine's decode-chunk program on the
 same latents (the two engines draw their noise differently).
@@ -80,15 +80,20 @@ def test_streaming_matches_monolithic(quality, overrides, chunk, overlap):
 def test_streaming_final_chunk_clamp():
     """A partial final chunk: its window is clamped to the buffer's end and
     its kept-span offset with it, with a matching emission skip (the
-    unclamped arithmetic re-emits earlier audio)."""
-    eng = _engine(VitsHParams.preset("micro"))
+    unclamped arithmetic re-emits earlier audio). Frame buckets 8 apart
+    keep the buffer close to the utterance, so a chunk size that leaves
+    more than two chunks reaches the clamp."""
+    hp = VitsHParams.preset("micro")
+    eng = VitsEngine(random_params(hp, torch.Generator().manual_seed(0)), hp,
+                     frame_buckets=tuple(range(8, 4097, 8)), device="cpu")
     n = len(eng.synthesize_ids(IDS, seed=42)) // eng.hp.total_upsample
+    total = eng._frame_bucket_clamped(n)
     overlap = 8
     trigger = None
     for chunk in range(overlap + 1, n - 2 * overlap):
         window = chunk + 2 * overlap
         i = math.ceil(n / chunk) - 1
-        start = min(max(i * chunk - overlap, 0), n - window)
+        start = min(max(i * chunk - overlap, 0), total - window)
         if i * chunk - start > window - chunk:
             trigger = chunk
             break
@@ -178,3 +183,18 @@ def test_voice_stream_equals_synthesize(voice):
     assert all(p.dtype == np.float32 for p in parts)
     np.testing.assert_allclose(np.concatenate(parts), whole[0],
                                atol=STREAM_TOL, rtol=0)
+
+
+def test_streaming_multi_speaker_matches_monolithic():
+    """A multi-speaker voice: the speaker embedding from the first-chunk
+    program conditions the latents and every window's decode."""
+    hp = VitsHParams.preset("micro", n_speakers=3, gin_channels=16)
+    eng = _engine(hp, seed=4)
+    full = eng.synthesize_ids(IDS, speaker_id=2, seed=9)
+    chunks = list(eng.synthesize_ids_streaming(
+        IDS, chunk_frames=8, overlap_frames=8, speaker_id=2, seed=9))
+    np.testing.assert_allclose(np.concatenate(chunks), full,
+                               atol=STREAM_TOL, rtol=0)
+    assert len(chunks) > 2
+    other = eng.synthesize_ids(IDS, speaker_id=0, seed=9)
+    assert other.shape != full.shape or np.abs(other - full).max() > 1e-3

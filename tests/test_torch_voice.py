@@ -122,7 +122,8 @@ def test_padded_batch_equals_single_decodes(voice):
              [1, 13, 14, 2]]
     audio, frames = engine.synthesize_batch(batch, seed=40)
     hop = engine.hp.total_upsample
-    assert audio.shape == (4, max(frames) * hop)
+    # padded to the frame bucket of the longest member, as the JAX engine
+    assert audio.shape == (4, engine._frame_bucket_clamped(max(frames)) * hop)
     for i, ids in enumerate(batch):
         # utterance i of a batch draws its noise from seed + i
         single = engine.synthesize_ids(ids, seed=40 + i)
@@ -142,14 +143,15 @@ def test_voice_synthesize_batch(voice):
 
 def test_frame_cap_truncates_with_warning(voice, caplog):
     engine = voice.engine
-    cap = engine.max_frames
-    engine.max_frames = 8
+    buckets = engine.frame_buckets
+    engine.frame_buckets = (8,)  # the cap is the largest frame bucket
     try:
+        assert engine.max_frames == 8
         with caplog.at_level("WARNING"):
             audio = engine.synthesize_ids([1, 4, 5, 6, 7, 8, 2], seed=0,
                                           length_scale=4.0)
     finally:
-        engine.max_frames = cap
+        engine.frame_buckets = buckets
     assert len(audio) == 8 * engine.hp.total_upsample
     assert "truncated" in caplog.text
 
