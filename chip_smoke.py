@@ -60,7 +60,23 @@ another sm_90a card) and the CUDA toolkit. The script
    captures and holds (``surface:`` lines), holds two streams of one key
    interleaved chunk by chunk and two threads' requests of one key made
    at once against the same calls made alone (``reentrant:`` lines), and
-   prints each graph's pool (``medium: graph`` lines); then the same
+   prints each graph's pool (``medium: graph`` lines); serves a fresh
+   load of the medium voice with ``TTSServer(port=0, max_batch=16,
+   max_wait_ms=10)`` (``serve:`` lines): ``warmup()`` at 1-16 lanes with
+   its graphs and pool, eight concurrent requests at noise 0 each within
+   4 int16 steps of ``synthesize_ids``, a seeded request of three
+   sentences against ``synthesize_batch`` of them in their own order,
+   the stream route within one step of the WAV route, one seeded
+   request of n short sentences for n = 1, 2, 4, 8, 16 (a group of n
+   lanes), closed-loop load at 1, 16 and 64 client threads (requests/s,
+   audio s per wall s,
+   latency p50/p90/p99, batches and lanes, the dispatcher's host time by
+   item, graph replays and captures by lane count, one level profiled
+   for the device's busy and idle share; counted from 0: A, B and C must
+   launch, graphs must replay at 1, 2, 4, 8 and 16 lanes, 16 lanes must
+   be seen at 64 clients), one client beside a direct request, the pool
+   after the load and its largest capture, and A, B and C against their
+   plain versions at 16 lanes; then the same
    serving checks for a ``medium-istft`` and a ``medium-mb-istft`` voice
    (``istft:`` lines), with kernel C held against its plain version at
    their stage shapes for 512 frames and the card's inverse STFT against
@@ -85,7 +101,8 @@ another sm_90a card) and the CUDA toolkit. The script
    utterances) held to that test's margins;
 5. prints each path's launch counts (every path counted from 0), one
    ``{"kernels": [...]}`` line whose launches sum the serving paths (A, B,
-   C; a graph replay adds the launches of its capture) and the two
+   C, the server's load included; a graph replay adds the launches of its
+   capture) and the two
    training runs (D), and, last, one
    ``{"ok": true, "device": {...}}`` line.
 
@@ -780,14 +797,8 @@ def path_vs_plain(torch, voice, seed, tag="path"):
     hp = engine.hp
     dev = engine.device
     cpu = torch.device("cpu")
-    plain = dict(engine.params)
-    plain["enc_p"] = dict(plain["enc_p"], encoder={
-        k: v for k, v in plain["enc_p"]["encoder"].items() if k != "fused"})
-    plain["flow"] = {k: v for k, v in plain["flow"].items()
-                     if k != "fused_rev"}
-    plain["dec"] = {k: v for k, v in plain["dec"].items()
-                    if k != "fused_stages"}
-    plain = vits_model.params_to_device(plain, cpu)
+    plain = vits_model.params_to_device(
+        vits_model.detach_fused_specs(engine.params), cpu)
     gen = torch.Generator().manual_seed(seed)
     lengths = [101, 64]
     ids = torch.randint(4, 30, (2, 101), generator=gen)
@@ -1389,13 +1400,15 @@ def eager_request(torch, engine, ids, seed):
 
 
 class HostClock:
-    """Host time spent inside some of an engine's methods, by name, while
-    ``on``: wraps them on the instance, unwraps on ``close``."""
+    """Host time spent inside some of an engine's methods, and their calls,
+    by name, while ``on``: wraps them on the instance, unwraps on
+    ``close``."""
 
     def __init__(self, engine, names):
         self.engine = engine
         self.on = False
         self.ms = dict.fromkeys(names, 0.0)
+        self.calls = dict.fromkeys(names, 0)
         for name in names:
             setattr(engine, name, self._timed(name, getattr(engine, name)))
 
@@ -1407,7 +1420,12 @@ class HostClock:
             finally:
                 if self.on:
                     self.ms[name] += (time.perf_counter() - t0) * 1e3
+                    self.calls[name] += 1
         return run
+
+    def reset(self):
+        self.ms = dict.fromkeys(self.ms, 0.0)
+        self.calls = dict.fromkeys(self.calls, 0)
 
     def close(self):
         for name in self.ms:
@@ -1661,6 +1679,504 @@ def graph_memory(engine, tag):
               f"MiB", flush=True)
     print(f"{tag}: {len(engine.graphs.programs)} graphs, pools "
           f"{engine.graphs.pool_bytes / 2 ** 20:.1f} MiB", flush=True)
+
+
+
+# ---------------------------------------------------------------------------
+# the HTTP server with dynamic batching
+# ---------------------------------------------------------------------------
+
+# int16 steps allowed between a served WAV and the engine's own request of
+# the same ids: the padded-batch bound (BATCH_TOL x 32767 = 3.3) plus one
+# step of truncation; a stream against the WAV route: one step
+SERVE_LSB = 4
+STREAM_LSB = 1
+# The load's traffic: a request is one utterance whose length follows LJ
+# Speech 1.1's published statistics (keithito.com/LJ-Speech-Dataset: 13,100
+# clips of 1.11-10.10 s, mean 6.57 s, 1,308,678 characters in all). Its
+# duration is drawn from the triangular distribution with that minimum,
+# mean and maximum (mode 3 x 6.57 - 1.11 - 10.10 = 8.50 s), its text has
+# the corpus's characters per second of audio (15.2), and the voice's
+# length_scale is set so that its audio per character is the corpus's.
+LJ_CLIP_S = (1.11, 6.57, 10.10)
+LJ_CHARS_PER_S = 1308678 / 13100 / 6.57
+LJ_CALIBRATION_TEXTS = 32
+# closed loop: client threads a level; each level runs SERVE_WARM_S
+# unmeasured (its first graph captures), then SERVE_WINDOW_S measured, read
+# in slices of SERVE_SLICE_S for the spread; one more level is profiled
+SERVE_CLIENTS = (1, 16, 64)
+SERVE_WARM_S, SERVE_WINDOW_S, SERVE_SLICE_S = 2.0, 10.0, 1.0
+SERVE_PROFILE_S = 3.0
+SERVE_LANES = (1, 2, 4, 8, 16)
+SINGLE_RUNS = 21
+
+
+def text_of_ids(n_ids: int, offset: int) -> str:
+    """A one-sentence RAW text of about ``n_ids`` ids (2.4 a letter with
+    the blanks and word spaces)."""
+    return text_of(max(4, round(n_ids / 2.4)), offset)
+
+
+def text_of_chars(n_chars: float, offset: int) -> str:
+    """A one-sentence RAW text of about ``n_chars`` characters (words of
+    5 letters and a space)."""
+    return text_of(max(4, round(n_chars * 5 / 6)), offset)
+
+
+def serve_post(srv, body):
+    """POST /synthesize: (int16 PCM, latency ms), failing on any status
+    but 200."""
+    import http.client
+    import io
+    import wave
+
+    t0 = time.perf_counter()
+    conn = http.client.HTTPConnection(*srv.address, timeout=600)
+    try:
+        conn.request("POST", "/synthesize", body=json.dumps(body),
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        data = resp.read()
+    finally:
+        conn.close()
+    ms = (time.perf_counter() - t0) * 1e3
+    if resp.status != 200:
+        raise RuntimeError(f"HTTP {resp.status}: {data[:300]!r}")
+    if body.get("stream"):
+        return np.frombuffer(data, np.int16), ms
+    with wave.open(io.BytesIO(data), "rb") as w:
+        return np.frombuffer(w.readframes(w.getnframes()), np.int16), ms
+
+
+def pcm16(audio):
+    """The WAV route's int16 of float audio."""
+    return np.clip(audio * 32767.0, -32767.0, 32767.0).astype(np.int16)
+
+
+def lsb(got, want) -> int:
+    return int(np.abs(got.astype(np.int32) - want.astype(np.int32)).max())
+
+
+def in_threads(fn, n_threads: int):
+    """Run fn(i) on n_threads threads at once; raise the first error."""
+    import threading
+
+    errors = []
+
+    def run(i):
+        try:
+            fn(i)
+        except Exception as exc:  # reported below, the run fails
+            errors.append(exc)
+
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(n_threads)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    check(not any(t.is_alive() for t in threads), "a client thread hung")
+    if errors:
+        fail(f"a client failed: {errors[0]!r}")
+
+
+def served_held(torch, srv, voice, seed, tag):
+    """Requests through the server held against the engine: eight
+    concurrent requests of 20-240 ids at noise 0 against synthesize_ids;
+    a seeded request of three sentences (out of length order) against
+    synthesize_batch of the sentences in their own order with the same
+    seed; the stream route against the WAV route."""
+    from phoonnx_tpu_torch import SynthesisConfig
+
+    engine = voice.engine
+    up = engine.hp.total_upsample
+
+    def ids_of(text):  # the server's own ids of a text
+        return srv._prepare(voice, text, SynthesisConfig())
+
+    targets = np.linspace(20, 240, 8).round().astype(int).tolist()
+    texts = [text_of_ids(n, k) for k, n in enumerate(targets)]
+    got = [None] * len(texts)
+
+    def hit(i):
+        got[i] = serve_post(srv, {"text": texts[i], "noise_scale": 0.0,
+                                  "noise_w": 0.0})[0]
+
+    before = srv.batcher.stats["batches"]
+    in_threads(hit, len(texts))
+    worst = 0
+    lengths = []
+    for text, pcm in zip(texts, got):
+        ids, = ids_of(text)
+        lengths.append(len(ids))
+        want = pcm16(engine.synthesize_ids(ids, noise_scale=0.0,
+                                           noise_w=0.0))
+        check(pcm.shape == want.shape, f"{tag}: a served WAV of {len(ids)} "
+              f"ids has {pcm.shape[0]} samples, the engine's {want.shape[0]}")
+        worst = max(worst, lsb(pcm, want))
+    print(f"{tag}: 8 concurrent requests of {lengths} ids at noise 0 in "
+          f"{srv.batcher.stats['batches'] - before} batch(es): max "
+          f"{worst} LSB from synthesize_ids (bound {SERVE_LSB})", flush=True)
+    check(worst <= SERVE_LSB, f"{tag}: a served request differs from the "
+          f"engine's by {worst} LSB")
+
+    sentences = [text_of_ids(n, 11 + k)
+                 for k, n in enumerate((180, 30, 90))]
+    body = {"text": ". ".join(sentences), "seed": seed}
+    pcm, _ = serve_post(srv, body)
+    ids = ids_of(body["text"])
+    lens = [len(i) for i in ids]
+    check(len(ids) == 3 and lens != sorted(lens),
+          f"{tag}: the seeded text phonemizes to sentences of {lens} ids")
+    audio, frames = engine.synthesize_batch(ids, seed=seed)
+    want = pcm16(np.concatenate([audio[i, :n * up]
+                                 for i, n in enumerate(frames)]))
+    check(pcm.shape == want.shape, f"{tag}: seeded request {pcm.shape} vs "
+          f"synthesize_batch {want.shape}")
+    err = lsb(pcm, want)
+    print(f"{tag}: a seeded request of 3 sentences ({lens} ids, out of "
+          f"length order): max {err} LSB from synthesize_batch of "
+          f"them in their order, seed {seed} (bound {SERVE_LSB})",
+          flush=True)
+    check(err <= SERVE_LSB, f"{tag}: the seeded request differs from "
+          f"synthesize_batch in its own order by {err} LSB: sorted or "
+          "batched with others")
+
+    body = {"text": text_of_ids(240, 5), "seed": seed + 1}
+    wav, _ = serve_post(srv, body)
+    stream, _ = serve_post(srv, dict(body, stream=True))
+    check(stream.shape == wav.shape, f"{tag}: stream {stream.shape} vs WAV "
+          f"{wav.shape}")
+    err = lsb(stream, wav)
+    print(f"{tag}: the stream route vs the WAV route, {wav.shape[0]} "
+          f"samples: max {err} LSB (bound {STREAM_LSB})", flush=True)
+    check(err <= STREAM_LSB, f"{tag}: the stream differs from the WAV by "
+          f"{err} LSB")
+
+
+def serve_kernels(torch, params, seed, tag="serve"):
+    """A, B and C against their plain versions at 16 lanes: 16 ragged rows
+    in text bucket 128, 16 rows at frame bucket 512, the three medium
+    stages at 16 x 512 frames. Returns the largest error of each."""
+    from phoonnx_tpu_torch.models.vits import fused_encoder, fused_flow
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    text = [128] + rng.integers(8, 129, 15).tolist()
+    frames = [512] + rng.integers(40, 513, 15).tolist()
+    errs = {}
+
+    def mask_of(lengths, t):
+        pos = torch.arange(t, device=dev)[None, :]
+        return (pos < torch.tensor(lengths, device=dev)[:, None])[
+            ..., None].float()
+
+    enc = params["enc_p"]["encoder"]["fused"]
+    hid = enc["n_heads"] * enc["dk"]
+    mask = mask_of(text, 128)
+    inputs = [(torch.randn(16, 128, hid, device=dev, generator=gen) * mask,
+               mask) for _ in range(3)]
+    errs["A"] = compare_kernel(
+        torch, "A", lambda x, m: fused_encoder.apply(enc, x, m),
+        lambda x, m: fused_encoder.plain(enc, x, m), inputs,
+        encoder_flops(enc, text, hid, enc["w_ffn1"].shape[-1]),
+        2 * 16 * 128 * hid * 4 + tensor_bytes(enc) + 64,
+        f"{tag} B=16 T_x=128 lengths={text}")["max_abs_err"]
+
+    flow = params["flow"]["fused_rev"]
+    c = 2 * flow["half"]
+    mask = mask_of(frames, 512)
+    inputs = [(torch.randn(16, 512, c, device=dev, generator=gen) * mask,
+               mask) for _ in range(3)]
+    errs["B"] = compare_kernel(
+        torch, "B", lambda x, m: fused_flow.apply(flow, x, m),
+        lambda x, m: fused_flow.plain(flow, x, m), inputs,
+        flow_flops(flow, frames), 2 * 16 * 512 * c * 4 + tensor_bytes(flow),
+        f"{tag} B=16 T_y=512 lengths={frames}")["max_abs_err"]
+
+    total = compare_stages(torch, params["dec"]["fused_stages"],
+                           params["dec"]["upsample_rates"], frames, gen,
+                           dev, f"{tag} ")
+    stage_total_line(total, "3 stages B=16 512 frames")
+    errs["C"] = total["max_abs_err"]
+    return errs
+
+
+def lane_sweep(srv, seed, tag):
+    """One seeded request of n short sentences (about 25 ids, text bucket
+    32, which warmup() covers) for each lane count n: a solo group of n
+    lanes, so every lane count replays its phase-1 graph. Prints the
+    request's latency (host clock, the second of two) by lane count."""
+    line = []
+    for n in SERVE_LANES:
+        body = {"text": ". ".join(text_of_ids(24, k) for k in range(n)),
+                "seed": seed}
+        serve_post(srv, body)
+        pcm, ms = serve_post(srv, body)
+        line.append(f"{n}: {ms:.3f} ms ({len(pcm)} samples)")
+    print(f"{tag}: one seeded request of n sentences of ~25 ids, by n: "
+          + ", ".join(line), flush=True)
+
+
+def lj_texts(seed: int, n: int):
+    """n one-sentence texts whose lengths follow LJ Speech's clip
+    statistics (LJ_CLIP_S, LJ_CHARS_PER_S)."""
+    lo, mean, hi = LJ_CLIP_S
+    rng = np.random.default_rng(seed)
+    seconds = rng.triangular(lo, 3 * mean - lo - hi, hi, size=n)
+    return [text_of_chars(s * LJ_CHARS_PER_S, int(rng.integers(0, 26)))
+            for s in seconds]
+
+
+def lj_length_scale(srv, voice, seed, tag):
+    """The length_scale at which this voice speaks LJ Speech's characters
+    per second: the audio of LJ_CALIBRATION_TEXTS texts of the mix at the
+    voice's own scales, in batches of 16, against the corpus's rate."""
+    from phoonnx_tpu_torch import SynthesisConfig
+
+    engine = voice.engine
+    texts = lj_texts(seed, LJ_CALIBRATION_TEXTS)
+    ids = [srv._prepare(voice, t, SynthesisConfig()) for t in texts]
+    check(all(len(i) == 1 for i in ids), f"{tag}: a load text is not one "
+          "sentence")
+    ids = [i[0] for i in ids]
+    inf = voice.config
+    frames = 0
+    for start in range(0, len(ids), 16):
+        frames += sum(engine.synthesize_batch(
+            ids[start:start + 16], noise_scale=inf.noise_scale,
+            length_scale=inf.length_scale, noise_w=inf.noise_w_scale,
+            seed=seed + start)[1])
+    seconds = frames * engine.hp.total_upsample / inf.sample_rate
+    chars = sum(len(t) for t in texts)
+    scale = inf.length_scale * (chars / LJ_CHARS_PER_S) / seconds
+    print(f"{tag}: the voice speaks {chars / seconds:.3f} characters a "
+          f"second at length_scale {inf.length_scale} over {len(texts)} "
+          f"texts of the mix ({chars} characters, {sum(map(len, ids))} "
+          f"ids); LJ Speech {LJ_CHARS_PER_S:.3f}: the load runs at "
+          f"length_scale {scale:.4f}", flush=True)
+    return scale
+
+
+def run_window(srv, bodies, clients: int, rate: int, seconds: float):
+    """Closed loop for ``seconds``: ``clients`` threads post the bodies in
+    turn, each request after its last one's answer, and start none after
+    the window. Returns (wall s to the last answer, [(answer s, latency
+    ms, audio s)])."""
+    import itertools
+    import threading
+
+    lock = threading.Lock()
+    todo = itertools.cycle(bodies)
+    done = []
+    t0 = time.perf_counter()
+    end = t0 + seconds
+
+    def client(_):
+        while True:
+            with lock:
+                if time.perf_counter() >= end:
+                    return
+                body = next(todo)
+            pcm, ms = serve_post(srv, body)
+            with lock:
+                done.append((time.perf_counter() - t0, ms, len(pcm) / rate))
+
+    in_threads(client, clients)
+    return time.perf_counter() - t0, done
+
+
+def replays_by_lanes(replays):
+    """{lane count: replays} of the phase-1 and phase-2 graphs in a count
+    of replays by key."""
+    out = {}
+    for key, n in replays.items():
+        if key[0] in ("phase1", "phase2"):
+            out[key[1]] = out.get(key[1], 0) + n
+    return dict(sorted(out.items()))
+
+
+def serve_load(torch, srv, voice, seed, scale, tag):
+    """The load levels, each a window of SERVE_WINDOW_S after SERVE_WARM_S
+    unmeasured: throughput with its quartiles over slices, latency
+    percentiles, batches and lanes, the dispatcher's host time by item,
+    the graph keys replayed and captured; then one profiled level for the
+    device's busy and idle share."""
+    from collections import Counter
+
+    engine = voice.engine
+    graphs = engine.graphs
+    rate = voice.config.sample_rate
+    bodies = [{"text": t, "length_scale": scale}
+              for t in lj_texts(seed, 512)]
+    items = ("_batch_inputs", "_prior", "_run", "_ready",
+             "synthesize_batch")
+    clock = HostClock(engine, items)
+    group_clock = HostClock(srv.batcher, ("_synthesize_group",))
+    try:
+        for clients in SERVE_CLIENTS:
+            run_window(srv, bodies, clients, rate, SERVE_WARM_S)
+            for c in (clock, group_clock):
+                c.reset()
+            replays0, keys0 = Counter(graphs.replays), set(graphs.programs)
+            stats0 = dict(srv.batcher.stats)
+            clock.on = group_clock.on = True
+            try:
+                wall, done = run_window(srv, bodies, clients, rate,
+                                        SERVE_WINDOW_S)
+            finally:
+                clock.on = group_clock.on = False
+            stats = srv.batcher.stats
+            groups = stats["batches"] - stats0["batches"]
+            replays = Counter(graphs.replays) - replays0
+            captured = sorted(set(graphs.programs) - keys0, key=str)
+            phase1 = [k for k in list(replays.elements()) + captured
+                      if k[0] == "phase1"]
+            d = clock.calls["synthesize_batch"]
+            check(d == len(phase1), f"{tag}: {d} dispatches ran "
+                  f"{len(phase1)} phase-1 graphs")
+            n = len(done)
+            audio = sum(a for _, _, a in done)
+            slices = [sum(a for t, _, a in done
+                          if k * SERVE_SLICE_S <= t < (k + 1) * SERVE_SLICE_S)
+                      / SERVE_SLICE_S
+                      for k in range(int(SERVE_WINDOW_S / SERVE_SLICE_S))]
+            q1, q2, q3 = quartiles(slices)
+            p50, p90, p99 = np.percentile([ms for _, ms, _ in done],
+                                          [50, 90, 99])
+            print(f"{tag}: {clients} client(s), {SERVE_WINDOW_S:.0f} s "
+                  f"window: {n} requests, {n / wall:.2f} requests/s, "
+                  f"{audio / wall:.2f} audio s per wall s ({audio:.2f} s of "
+                  f"audio in {wall:.3f} s; by {SERVE_SLICE_S:.0f} s slice "
+                  f"quartiles {q1:.2f}/{q2:.2f}/{q3:.2f}); latency ms p50 "
+                  f"{p50:.3f} p90 {p90:.3f} p99 {p99:.3f}; audio a request "
+                  f"{audio / n:.3f} s (LJ Speech {LJ_CLIP_S[1]})",
+                  flush=True)
+            print(f"{tag}: {clients} client(s): {groups} batches (scale "
+                  f"groups), {d} device dispatches, lanes a dispatch "
+                  f"{sum(k[1] for k in phase1) / d:.2f} padded / "
+                  f"{n / d:.2f} real, max_batch_seen "
+                  f"{stats['max_batch_seen']}", flush=True)
+            ms = clock.ms
+            rest = (ms["synthesize_batch"] - ms["_batch_inputs"]
+                    - ms["_prior"] - ms["_run"] - ms["_ready"])
+            reassembly = (group_clock.ms["_synthesize_group"]
+                          - ms["synthesize_batch"])
+            print(f"{tag}: {clients} client(s): dispatcher host ms a "
+                  f"dispatch (means of {d}): ids and duration "
+                  f"noise {ms['_batch_inputs'] / d:.3f}, prior draw "
+                  f"{ms['_prior'] / d:.3f}, staging and replays "
+                  f"{ms['_run'] / d:.3f}, waits for the device "
+                  f"{ms['_ready'] / d:.3f}, the rest of synthesize_batch "
+                  f"{rest / d:.3f}, reassembly {reassembly / d:.3f}; "
+                  f"synthesize_batch {ms['synthesize_batch'] / d:.3f}",
+                  flush=True)
+            by_lanes = replays_by_lanes(replays)
+            print(f"{tag}: {clients} client(s): graph replays by lane count "
+                  f"{by_lanes}; graphs captured in the window "
+                  f"{len(captured)} {captured}", flush=True)
+            if clients == SERVE_CLIENTS[-1]:
+                check(stats["max_batch_seen"] == 16 and by_lanes.get(16),
+                      f"{tag}: no 16-lane dispatch at {clients} clients")
+        clients = SERVE_CLIENTS[1]
+        device_profile(torch, lambda: run_window(srv, bodies, clients, rate,
+                                                 SERVE_PROFILE_S),
+                       f"{tag} {clients} clients, {SERVE_PROFILE_S:.0f} s",
+                       top=12)
+    finally:
+        group_clock.close()
+        clock.close()
+
+
+def single_client(torch, srv, voice, seed, scale, tag):
+    """One client's request through the server beside voice.synthesize of
+    the same text, SINGLE_RUNS of each in turns: an utterance of LJ
+    Speech's mean clip length at the load's length_scale."""
+    from phoonnx_tpu_torch import SynthesisConfig
+
+    text = text_of_chars(LJ_CLIP_S[1] * LJ_CHARS_PER_S, 9)
+    cfg = SynthesisConfig(seed=seed, normalize_audio=False,
+                          length_scale=scale)
+    body = {"text": text, "seed": seed, "length_scale": scale}
+    direct_ms, served_ms = [], []
+    for _ in range(SINGLE_RUNS + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = pcm16(np.concatenate([c.audio_float_array for c in
+                                     voice.synthesize(text, cfg)]))
+        direct_ms.append((time.perf_counter() - t0) * 1e3)
+        pcm, ms = serve_post(srv, body)
+        served_ms.append(ms)
+    check(pcm.shape == want.shape and lsb(pcm, want) <= SERVE_LSB,
+          f"{tag}: the single client's WAV differs from voice.synthesize")
+    direct_ms, served_ms = direct_ms[1:], served_ms[1:]
+    print(f"{tag}: single client, {len(text)} characters, {len(want)} "
+          f"samples: served_ms {statistics.median(served_ms):.3f} direct "
+          f"voice.synthesize_ms {statistics.median(direct_ms):.3f} (medians "
+          f"of {SINGLE_RUNS} in turns; the server waits max_wait_ms "
+          f"{srv.batcher.max_wait * 1e3:.0f} for more lanes)", flush=True)
+    print(f"{tag}: " + compare_times("served", served_ms, "direct",
+                                     direct_ms), flush=True)
+
+
+def serve_phase(torch, voice, seed, tag="serve"):
+    """The medium voice behind ``TTSServer(port=0, max_batch=16,
+    max_wait_ms=10)`` on 127.0.0.1: warmup() with its graphs and pool; the
+    served requests held to the engine; the load's length_scale; a sweep
+    of one request at each lane count and the load levels (counted from 0
+    just before them and read just after: A, B and C must each launch,
+    and a graph of each lane count replay); one client beside a direct
+    request; each graph's pool. Returns the counted launches."""
+    from collections import Counter
+
+    from phoonnx_tpu_torch.serve import TTSServer
+
+    engine = voice.engine
+    t_phase = time.perf_counter()
+    srv = TTSServer(voice, port=0, max_batch=16, max_wait_ms=10)
+    srv.start()
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        srv.warmup()
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        keys = sorted(engine.graphs.programs, key=str)
+        print(f"{tag}: warmup() in {warm_s:.3f} s: {len(keys)} graphs, "
+              f"pool {engine.graphs.pool_bytes / 2 ** 20:.1f} MiB; keys "
+              f"{keys}", flush=True)
+        memory_line(torch, f"{tag} warmup()")
+
+        served_held(torch, srv, voice, seed, tag)
+        scale = lj_length_scale(srv, voice, seed + 3, tag)
+        kernels = serving_kernels()
+        reset_launches(kernels)
+        replays0 = Counter(engine.graphs.replays)
+        lane_sweep(srv, seed + 1, tag)
+        serve_load(torch, srv, voice, seed + 1, scale, tag)
+        launches = read_launches(kernels, tag, "dynamic-batching server "
+                                 "path (the lane sweep and the load levels)")
+        replayed = replays_by_lanes(Counter(engine.graphs.replays)
+                                    - replays0)
+        print(f"{tag}: graph keys the served requests replayed, by lane "
+              f"count {replayed}", flush=True)
+        missing = [n for n in SERVE_LANES if not replayed.get(n)]
+        check(not missing, f"{tag}: no graph replayed at {missing} lanes")
+
+        single_client(torch, srv, voice, seed + 2, scale, tag)
+    finally:
+        srv.stop()
+    biggest = max(engine.graphs.programs.items(),
+                  key=lambda kv: kv[1].pool_bytes)
+    print(f"{tag}: after the load {len(engine.graphs.programs)} graphs, "
+          f"pool {engine.graphs.pool_bytes / 2 ** 20:.1f} MiB; the largest "
+          f"capture {biggest[0]} +{biggest[1].pool_bytes / 2 ** 20:.1f} MiB",
+          flush=True)
+    memory_line(torch, f"{tag} load")
+    print(f"{tag}: the phase took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return launches
 
 
 # the voice-conversion voice: medium widths, the speaker embedding width a
@@ -2374,6 +2890,18 @@ def main() -> None:
     graph_memory(voice.engine, "medium")
     memory_line(torch, "the medium voice's phases")
     del voice
+    # the HTTP server with dynamic batching, on a fresh load of the medium
+    # voice (a pool of its own); then A, B and C at its 16 lanes
+    from phoonnx_tpu_torch import TTSVoice
+
+    served = TTSVoice.load(str(model_path), str(config_path))
+    paths["medium dynamic-batching server path"] = serve_phase(
+        torch, served, args.seed + 6)
+    for name, err in serve_kernels(torch, served.engine.params,
+                                   args.seed + 7).items():
+        results[name]["max_abs_err"] = max(results[name]["max_abs_err"],
+                                           err)
+    del served
     for quality in ("medium-istft", "medium-mb-istft"):
         stages, served = istft_phase(torch, quality, args.seed, ROOT,
                                      medium_ms)

@@ -83,6 +83,16 @@ def resolve_device(device=None) -> torch.device:
     return device
 
 
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    """Whether two devices are one; a CUDA device without an index is the
+    current one."""
+    def index(d):
+        if d.type == "cuda" and d.index is None:
+            return torch.cuda.current_device()
+        return d.index
+    return a.type == b.type and index(a) == index(b)
+
+
 def _bucket_for(value: int, buckets: Sequence[int]) -> int:
     for bucket in buckets:
         if value <= bucket:
@@ -178,6 +188,30 @@ class VitsEngine:
     def max_frames(self) -> int:
         """The largest frame bucket: longer predictions are truncated."""
         return self.frame_buckets[-1]
+
+    def replicate(self, devices) -> List["VitsEngine"]:
+        """One engine per device, sharing this engine's configuration.
+
+        Element 0 is this engine when it already sits on ``devices[0]``
+        (no weight copy); every other device gets a new engine holding
+        its own copy of the parameters (without the kernel specs, which
+        the new engine builds on its device) and its own graphs, with
+        their pool, lock and stream. Serving
+        fans requests out across them (``serve.BatcherPool``).
+        """
+        out = []
+        for i, dev in enumerate(devices):
+            dev = torch.device(dev)
+            if i == 0 and _same_device(dev, self.device):
+                out.append(self)
+                continue
+            out.append(VitsEngine(
+                vits_model.detach_fused_specs(self.params), self.hp,
+                text_buckets=self.text_buckets,
+                frame_buckets=self.frame_buckets, mode=self.mode,
+                frames_per_token=self.frames_per_token,
+                fetch_pcm16=self.fetch_pcm16, device=dev))
+        return out
 
     # -- programs: tensors in, tensors out ---------------------------------
 

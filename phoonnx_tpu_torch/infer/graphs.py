@@ -36,9 +36,14 @@ memory that earlier captures freed (their temporaries), so one graph's
 replay may write over another graph's static outputs; that is safe
 because every replay's outputs are copied off, on the same stream and
 under the same lock, before any other replay runs. The static inputs lie
-outside the pool.
+outside the pool. A capture that runs out of device memory raises with
+its key and the pool's size.
+
+Counts: ``Graphs.replays`` counts the replays of each key (a key's first
+call, which captures it, is not one), under the same lock.
 """
 
+import collections
 import threading
 from typing import Dict, Optional, Sequence
 
@@ -157,6 +162,7 @@ class Graphs:
     def __init__(self, device: torch.device):
         self.device = device
         self.programs: Dict[tuple, CapturedProgram] = {}
+        self.replays: "collections.Counter[tuple]" = collections.Counter()
         self._stream: Optional[torch.cuda.Stream] = None
         self._pool = None
         self._lock = threading.Lock()
@@ -176,17 +182,47 @@ class Graphs:
             with torch.cuda.stream(self._stream):
                 program = self.programs.get(key)
                 if program is None:
-                    program = CapturedProgram(fn, args, self._pool)
+                    program = self._capture(key, fn, args)
                     self.programs[key] = program
                     out, program.first = program.first, None
                 else:
                     out = program(*args)
+                    self.replays[key] += 1
             current.wait_stream(self._stream)
             # made on the engine's stream, used on the caller's
             _map(lambda t: t.record_stream(current), out)
         return out
 
+    def _capture(self, key: tuple, fn, args: Sequence) -> CapturedProgram:
+        """Capture ``fn`` at ``key``; out of device memory, raise naming the
+        key and what the engine's graphs already hold (no graph is
+        dropped and nothing runs eagerly in its place)."""
+        try:
+            return CapturedProgram(fn, args, self._pool)
+        except Exception as exc:
+            if not _out_of_memory(exc):
+                raise
+            raise torch.OutOfMemoryError(
+                f"out of device memory capturing the graph of {key}, with "
+                f"{len(self.programs)} graphs holding "
+                f"{self.pool_bytes / 2 ** 20:.1f} MiB in this engine's pool: "
+                f"{exc}") from exc
+
     @property
     def pool_bytes(self) -> int:
         """Device memory the captures added to the pool."""
         return sum(p.pool_bytes for p in self.programs.values())
+
+
+def _out_of_memory(exc: BaseException) -> bool:
+    """Whether ``exc`` or an error it was raised from or while handling is
+    the allocator's out-of-memory error: inside a capture, that error
+    makes the capture's end fail too, and the end's error is the one that
+    surfaces."""
+    seen = set()
+    while exc is not None and id(exc) not in seen:
+        if isinstance(exc, torch.OutOfMemoryError):
+            return True
+        seen.add(id(exc))
+        exc = exc.__cause__ or exc.__context__
+    return False

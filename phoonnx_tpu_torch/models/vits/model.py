@@ -239,6 +239,20 @@ def attach_fused_specs(params):
     return out
 
 
+def detach_fused_specs(params):
+    """Params view without the kernel specs :func:`attach_fused_specs`
+    adds (they hold views of the weights beside them): what to move to
+    another device before attaching them there anew."""
+    out = dict(params)
+    out["enc_p"] = dict(params["enc_p"], encoder={
+        k: v for k, v in params["enc_p"]["encoder"].items() if k != "fused"})
+    out["flow"] = {k: v for k, v in params["flow"].items()
+                   if k != "fused_rev"}
+    out["dec"] = {k: v for k, v in params["dec"].items()
+                  if k != "fused_stages"}
+    return out
+
+
 def decode_audio(params, hp: VitsHParams, z: Tensor,
                  g: Optional[Tensor] = None,
                  frame_lengths: Optional[Tensor] = None) -> Tensor:

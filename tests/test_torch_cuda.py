@@ -722,3 +722,124 @@ def test_voice_conversion_graph_equals_eager(device):
     assert np.isfinite(out).all() and len(out) % 256 == 0
     assert fused_encoder.launches == before[0]
     assert fused_flow.launches > before[1]
+
+
+# ---------------------------------------------------------------------------
+# serving: 16 lanes, the HTTP server, replicas
+# ---------------------------------------------------------------------------
+
+
+def test_kernels_at_sixteen_lanes(device, params):
+    """A, B and C at the largest batch the server dispatches, through
+    ``chip_smoke.serve_kernels``: 16 ragged rows in text bucket 128 (A),
+    at frame bucket 512 (B) and at 16 x 512 frames through the three
+    medium stages (C), each within TOL of its plain version."""
+    import chip_smoke
+
+    errs = chip_smoke.serve_kernels(torch, params, 16, tag="card")
+    assert sorted(errs) == ["A", "B", "C"]
+    assert max(errs.values()) < TOL
+
+
+def _served_voice(tmp_path, seed, device=None):
+    """A medium voice (two encoder layers) written as ``chip_smoke.py``
+    writes its voices and loaded on ``device``; RAW phonemes a-z."""
+    import chip_smoke
+    from phoonnx_tpu_torch import TTSVoice
+
+    hp = model.VitsHParams.preset("medium", n_layers=2)
+    p = model.random_params(hp, torch.Generator().manual_seed(seed))
+    path, _ = chip_smoke.write_voice(torch, p, hp, tmp_path)
+    return TTSVoice.load(str(path), device=device)
+
+
+def test_server_answers_concurrent_requests(device, tmp_path):
+    """A server on the card, through ``chip_smoke.served_held``: eight
+    concurrent requests at noise 0, each within 4 LSB of the engine's own
+    request (the padded-batch bound 1e-4 x 32767 plus truncation); a
+    seeded request of three sentences against synthesize_batch in their
+    order; the stream route within 1 LSB of the WAV route."""
+    import chip_smoke
+    from phoonnx_tpu_torch.serve import TTSServer
+
+    voice = _served_voice(tmp_path, 9)
+    srv = TTSServer(voice, port=0, max_batch=16, max_wait_ms=50.0)
+    srv.start()
+    try:
+        chip_smoke.served_held(torch, srv, voice, 9, "card")
+        assert srv.batcher.stats["max_batch_seen"] > 1
+    finally:
+        srv.stop()
+
+
+def test_capture_out_of_memory_names_the_key(device):
+    """A capture that runs out of device memory raises OutOfMemoryError
+    naming its key and the pool, keeps no graph for it, and the engine's
+    graphs, pool and lock go on working: another key still replays."""
+    from phoonnx_tpu_torch.infer.graphs import Graphs
+
+    device = torch.device("cuda", torch.cuda.current_device())
+    graphs = Graphs(device)
+    x = torch.arange(8.0, device=device)
+
+    def small(t):
+        return t * 2
+
+    def large(t):  # 16 GiB, but only while the graph is captured
+        if torch.cuda.is_current_stream_capturing():
+            return t + torch.zeros(2 ** 32, device=t.device)[:8]
+        return t + 1
+
+    graphs.run(("small",), small, (x,))
+    total = torch.cuda.get_device_properties(device).total_memory
+    limit = (torch.cuda.memory_reserved(device) + 2 ** 30) / total
+    torch.cuda.set_per_process_memory_fraction(limit, device)
+    try:
+        with pytest.raises(torch.OutOfMemoryError,
+                           match=r"\('large', 1\).*graphs holding"):
+            graphs.run(("large", 1), large, (x,))
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0, device)
+    assert ("large", 1) not in graphs.programs
+    assert torch.equal(graphs.run(("small",), small, (x + 1,)), 2 * (x + 1))
+    assert graphs.replays == {("small",): 1}
+    assert torch.equal(graphs.run(("small", 4), small, (x[:4],)), 2 * x[:4])
+
+
+def test_replica_serves_on_the_second_card(device, tmp_path):
+    """With two cards: ``replicate`` puts a second engine on cuda:1 with
+    its own parameters and graphs, and a server of both answers a request
+    there equal to the first card's. The one-card chip run cannot show
+    this."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two GPUs")
+    import chip_smoke
+    from phoonnx_tpu_torch.serve import TTSServer
+
+    voice = _served_voice(tmp_path, 10, device="cuda:0")
+    first, second = voice.engine.replicate(["cuda:0", "cuda:1"])
+    assert first is voice.engine
+    assert second.device == torch.device("cuda", 1)
+    assert second.params["flow"]["fused_rev"]["w_in"].device == second.device
+    ids = [4, 9, 11, 5, 13, 7, 20, 8, 6]
+    with torch.cuda.device(0):
+        a = first.synthesize_ids(ids, seed=2)
+        b = second.synthesize_ids(ids, seed=2)
+    assert np.abs(a - b).max() <= GRAPH_TOL
+    assert all(p.graph is not None for p in second.graphs.programs.values())
+
+    srv = TTSServer(voice, port=0, max_batch=4, devices=["cuda:0",
+                                                         "cuda:1"])
+    srv.start()
+    try:
+        pool = srv.batcher
+        assert [b.engine.device.index for b in pool.batchers] == [0, 1]
+        body = {"text": "abcd efgh ijkl", "seed": 3}
+        pcm = chip_smoke.serve_post(srv, body)[0]
+        streams = [chip_smoke.serve_post(srv, dict(body, stream=True))[0]
+                   for _ in range(2)]
+        for s in streams:  # round-robin: one stream a card
+            assert s.shape == pcm.shape
+            assert np.abs(s.astype(np.int32) - pcm).max() <= 1
+    finally:
+        srv.stop()

@@ -387,3 +387,20 @@ def test_threads_share_an_engine(models):
         assert len(outs) == 3
         for out in outs:
             np.testing.assert_array_equal(out, want)
+
+
+def test_capture_error_chain_finds_out_of_memory():
+    """Inside a capture the allocator's out-of-memory error makes the
+    capture's end fail too, and the end's error surfaces: the graphs'
+    out-of-memory check looks through the chain of errors."""
+    from phoonnx_tpu_torch.infer.graphs import _out_of_memory
+
+    try:
+        try:
+            raise torch.OutOfMemoryError("CUDA out of memory")
+        except torch.OutOfMemoryError:
+            raise RuntimeError("operation failed due to a previous error "
+                               "during capture")
+    except RuntimeError as exc:
+        assert _out_of_memory(exc)
+    assert not _out_of_memory(RuntimeError("another failure"))

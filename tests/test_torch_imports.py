@@ -2,7 +2,8 @@
 
 (a) A fresh interpreter whose import system refuses ``jax``, ``jaxlib``
 and ``phoonnx_tpu`` (but not ``phoonnx_tpu_torch``) imports every module
-of the port, synthesizes and takes one training step on the CPU. (b) The entry points default to
+of the port, synthesizes, serves one seeded request through the batcher
+and takes one training step on the CPU. (b) The entry points default to
 CUDA and raise without it; they never drop to the CPU on their own.
 """
 
@@ -38,7 +39,7 @@ for trained in ("ops.mas", "ops.stft", "models.vits.discriminator",
                 "train.losses", "train.step", "train.dataset",
                 "train.checkpoint", "train.trainer", "ops.istft", "ops.pqmf",
                 "models.vits.istft_decoder", "infer.graphs",
-                "observability", "synthesize", "convert"):
+                "observability", "synthesize", "convert", "serve"):
     assert "phoonnx_tpu_torch." + trained in names, trained
 
 import torch
@@ -62,6 +63,11 @@ batch = {"phoneme_ids": torch.randint(1, 32, (2, 7), generator=rng),
          "audio": torch.rand(2, 24 * hp.hop_length, generator=rng) - 0.5}
 state, metrics = step.train_step(state, batch, hp, cfg, generator=rng)
 assert state.step == 1 and all(torch.isfinite(v) for v in metrics.values())
+from phoonnx_tpu_torch.serve import DynamicBatcher
+batcher = DynamicBatcher(engine, max_batch=2, autostart=False)
+sub = batcher.submit([[1, 4, 5, 2], [1, 6, 2]], (0.667, 1.0, 0.8), seed=0)
+batcher._drain_once()
+assert len(sub.wait(timeout=60)) > 0
 leaked = sorted(m for m in sys.modules
                 if any(m == b or m.startswith(b + ".") for b in BLOCKED))
 assert not leaked, leaked
