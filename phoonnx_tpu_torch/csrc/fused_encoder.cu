@@ -42,11 +42,22 @@
 // while it is free.
 // Shared memory per block is that of the strip, so the longest text is
 // set by the 227 KB a block may hold (attention_smem_bytes).
+//
+// bfloat16 (built with -DPHX_BF16, persist.cuh) follows the TPU kernel's
+// rounding points: the input, the weights, the output and the layer's
+// running x (xbuf) are bf16; QKV, the scores, the softmax and the
+// relative tables are float32 (qkv stays a float32 buffer, so the
+// attention item and its shared memory are the same as in float32); the
+// attention output (attn), each LayerNorm output (xbuf, out) and the FFN
+// hidden (hbuf) are rounded to bf16 where they are stored. The relative
+// tables are converted into the slab buffer by plain loads, where
+// float32 copies them with cp.async.
 
 #include "persist.cuh"
 
 namespace {
 
+using namespace phx;
 using namespace phx::ps;
 namespace cg = cooperative_groups;
 
@@ -80,25 +91,25 @@ __host__ __device__ int slab_keys(int T, int dk, int window) {
 }
 
 struct EncArgs {
-  const float* x;
+  const elem_t* x;
   const int* len;
-  const float* w_qkv;
-  const float* b_qkv;
-  const float* w_o;
-  const float* b_o;
-  const float* rel_k;
-  const float* rel_v;
-  const float* ln;
-  const float* w1;
-  const float* b1;
-  const float* w2;
-  const float* b2;
-  float* xbuf;
+  const elem_t* w_qkv;
+  const elem_t* b_qkv;
+  const elem_t* w_o;
+  const elem_t* b_o;
+  const elem_t* rel_k;
+  const elem_t* rel_v;
+  const elem_t* ln;
+  const elem_t* w1;
+  const elem_t* b1;
+  const elem_t* w2;
+  const elem_t* b2;
+  elem_t* xbuf;
   float* qkv;
-  float* attn;
+  elem_t* attn;
   float* part;
-  float* hbuf;
-  float* out;
+  elem_t* hbuf;
+  elem_t* out;
   long long* stamps;  // phase end times, or null
   int B, T, H, F, L, n_heads, window, ffn_k;
   int split_o, per_o, split_2, per_2;
@@ -107,9 +118,10 @@ struct EncArgs {
 
 // One tap-form product phase over [B, T] x N outputs: tile w of the
 // phase's list, its epilogue called per output element with the raw sum.
-template <class Epi>
+template <class E, class Epi>
 __device__ void gemm_phase(GemmSmem& sm, const Conv& cv, int B, int T, int N,
-                           int splits, int per, const Rows& rows, Epi epi) {
+                           int splits, int per, const Rows<E>& rows,
+                           Epi epi) {
   const int tiles_m = cdiv(T, BM);
   const int tiles_n = cdiv(N, BN);
   const int items = tiles_m * tiles_n * B * splits;
@@ -149,8 +161,8 @@ __device__ void attention_item(float* smem, const EncArgs& a, int layer,
   float* ps = qs + QT * dk;      // [QT][T] scores, then probabilities
   float* rl = ps + QT * T;       // [QT][nrel] relative-key logits
   float* ks = rl + QT * nrel;    // [2][SK][kp] key, then value, slabs
-  const float* rel_k = a.rel_k + (size_t)layer * nrel * dk;
-  const float* rel_v = a.rel_v + (size_t)layer * nrel * dk;
+  const elem_t* rel_k = a.rel_k + (size_t)layer * nrel * dk;
+  const elem_t* rel_v = a.rel_v + (size_t)layer * nrel * dk;
   const int tid = threadIdx.x;
   const int L = a.len[b];
   const float* base = a.qkv + (size_t)b * T * ldq + hd * dk;
@@ -183,9 +195,14 @@ __device__ void attention_item(float* smem, const EncArgs& a, int layer,
 
   // a relative table [nrel][dk] -> the second slab buffer, pitch kp
   float* rel_s = ks + SK * kp;
-  auto stage_rel = [&](const float* table) {
-    for (int i = tid; i < nrel * dk; i += NT)
-      cp_async4(rel_s + (i / dk) * kp + i % dk, table + i);
+  auto stage_rel = [&](const elem_t* table) {
+    for (int i = tid; i < nrel * dk; i += NT) {
+      float* dst = rel_s + (i / dk) * kp + i % dk;
+      if constexpr (kElemFloat)
+        cp_async4(dst, table + i);
+      else
+        *dst = ldg_f(table + i);
+    }
     cp_commit();
   };
 
@@ -344,7 +361,7 @@ __device__ void attention_item(float* smem, const EncArgs& a, int layer,
         const int s = qi + k - window;
         if (s >= 0 && s < T) v = fmaf(ps[r * T + s], rel_s[k * kp + d], v);
       }
-      a.attn[((size_t)b * T + qi) * H + hd * dk + d] = v;
+      st(a.attn + ((size_t)b * T + qi) * H + hd * dk + d, v);
     }
   }
   __syncthreads();
@@ -367,10 +384,10 @@ __device__ void attention_groups(int dj, float* smem, const EncArgs& a,
 // (zero past the length when `mask_y`); one warp per row over the grid.
 // With `out` set the result is also written there, zeroed past the
 // length.
-__device__ void add_layernorm_phase(const EncArgs& a, const float* res,
-                                    const float* bias, const float* gamma,
-                                    const float* beta, int splits,
-                                    bool mask_y, float* out) {
+__device__ void add_layernorm_phase(const EncArgs& a, const elem_t* res,
+                                    const elem_t* bias, const elem_t* gamma,
+                                    const elem_t* beta, int splits,
+                                    bool mask_y, elem_t* out) {
   const int H = a.H;
   const int rows = a.B * a.T;
   const size_t plane = (size_t)rows * H;
@@ -380,7 +397,7 @@ __device__ void add_layernorm_phase(const EncArgs& a, const float* res,
     const int row = g * (NT / 32) + threadIdx.x / 32;
     if (row >= rows) continue;
     const bool valid = (row % a.T) < a.len[row / a.T];
-    const float* rr = res + (size_t)row * H;
+    const elem_t* rr = res + (size_t)row * H;
     // every load of the row starts before the first is used
     float v[MAX_H / 32];
 #pragma unroll
@@ -401,7 +418,7 @@ __device__ void add_layernorm_phase(const EncArgs& a, const float* res,
 #pragma unroll
       for (int k = 0; k < MAX_H / 32; ++k) {
         const int c = lane + 32 * k;
-        if (c < H) v[k] += __ldg(bias + c);
+        if (c < H) v[k] += ldg_f(bias + c);
       }
     }
     float sum = 0.f;
@@ -418,14 +435,14 @@ __device__ void add_layernorm_phase(const EncArgs& a, const float* res,
     for (int o = 16; o > 0; o >>= 1) sq += __shfl_xor_sync(0xffffffffu, sq, o);
     const float inv = 1.f / sqrtf(sq / H + 1e-5f);
     // each lane writes only the columns it read (res may be xbuf itself)
-    float* xr = a.xbuf + (size_t)row * H;
+    elem_t* xr = a.xbuf + (size_t)row * H;
 #pragma unroll
     for (int k = 0; k < MAX_H / 32; ++k) {
       const int c = lane + 32 * k;
       if (c >= H) continue;
-      const float y = (v[k] - mean) * inv * __ldg(gamma + c) + __ldg(beta + c);
-      xr[c] = y;
-      if (out != nullptr) out[(size_t)row * H + c] = valid ? y : 0.f;
+      const float y = (v[k] - mean) * inv * ldg_f(gamma + c) + ldg_f(beta + c);
+      st(xr + c, y);
+      if (out != nullptr) st(out + (size_t)row * H + c, valid ? y : 0.f);
     }
   }
 }
@@ -446,16 +463,17 @@ encoder_persistent(EncArgs a) {
   stamp(a.stamps, 0);
 
   for (int l = 0; l < a.L; ++l) {
-    const float* x = l == 0 ? a.x : a.xbuf;
-    const float* lnl = a.ln + (size_t)l * 4 * H;
+    const elem_t* x = l == 0 ? a.x : a.xbuf;
+    const elem_t* lnl = a.ln + (size_t)l * 4 * H;
     // 1. qkv = x W_qkv + b
     {
       const Conv cv{a.w_qkv + (size_t)l * H * 3 * H, H, 3 * H, 1, 1, 0};
-      const float* bias = a.b_qkv + (size_t)l * 3 * H;
+      const elem_t* bias = a.b_qkv + (size_t)l * 3 * H;
       float* qkv = a.qkv;
-      gemm_phase(sm, cv, B, T, 3 * H, 1, cv.slabs(), Rows{x, T, H, 0, nullptr},
+      gemm_phase(sm, cv, B, T, 3 * H, 1, cv.slabs(),
+                 Rows<elem_t>{x, T, H, 0, nullptr},
                  [=](int, int b, int t, int n, float v) {
-                   qkv[((size_t)b * T + t) * 3 * H + n] = v + __ldg(bias + n);
+                   qkv[((size_t)b * T + t) * 3 * H + n] = v + ldg_f(bias + n);
                  });
     }
     sync();
@@ -483,7 +501,7 @@ encoder_persistent(EncArgs a) {
       const Conv cv{a.w_o + (size_t)l * H * H, H, H, 1, 1, 0};
       float* part = a.part;
       gemm_phase(sm, cv, B, T, H, a.split_o, a.per_o,
-                 Rows{a.attn, T, H, 0, nullptr},
+                 Rows<elem_t>{a.attn, T, H, 0, nullptr},
                  [=](int s, int b, int t, int n, float v) {
                    part[s * plane + ((size_t)b * T + t) * H + n] = v;
                  });
@@ -496,13 +514,14 @@ encoder_persistent(EncArgs a) {
     // 5. h = mask * relu(conv(mask * x))
     {
       const Conv cv{a.w1 + (size_t)l * K * H * F, H, F, K, 1, pad};
-      const float* bias = a.b1 + (size_t)l * F;
-      float* hbuf = a.hbuf;
+      const elem_t* bias = a.b1 + (size_t)l * F;
+      elem_t* hbuf = a.hbuf;
       const int* len = a.len;
-      gemm_phase(sm, cv, B, T, F, 1, cv.slabs(), Rows{a.xbuf, T, H, 0, a.len},
+      gemm_phase(sm, cv, B, T, F, 1, cv.slabs(),
+                 Rows<elem_t>{a.xbuf, T, H, 0, a.len},
                  [=](int, int b, int t, int n, float v) {
-                   hbuf[((size_t)b * T + t) * F + n] =
-                       t < len[b] ? fmaxf(v + __ldg(bias + n), 0.f) : 0.f;
+                   st(hbuf + ((size_t)b * T + t) * F + n,
+                      t < len[b] ? fmaxf(v + ldg_f(bias + n), 0.f) : 0.f);
                  });
     }
     sync();
@@ -511,7 +530,7 @@ encoder_persistent(EncArgs a) {
       const Conv cv{a.w2 + (size_t)l * K * F * H, F, H, K, 1, pad};
       float* part = a.part;
       gemm_phase(sm, cv, B, T, H, a.split_2, a.per_2,
-                 Rows{a.hbuf, T, F, 0, a.len},
+                 Rows<elem_t>{a.hbuf, T, F, 0, a.len},
                  [=](int s, int b, int t, int n, float v) {
                    part[s * plane + ((size_t)b * T + t) * H + n] = v;
                  });
@@ -552,12 +571,16 @@ extern "C" int fused_encoder_occupancy(int T, int dk, int window, int* out) {
 // fused_encoder_occupancy reports (a cooperative launch is refused
 // otherwise); split_* x per_* cover each product's slabs
 // (phoonnx_tpu_torch/tiling.py).
+//
+// x, the weights, out, xbuf, attn and hbuf are of the build's element type
+// (float32, or bf16 with -DPHX_BF16); qkv and part are float32.
 extern "C" int fused_encoder_forward(
-    const float* x, const int* lengths, const float* w_qkv,
-    const float* b_qkv, const float* w_o, const float* b_o,
-    const float* rel_k, const float* rel_v, const float* ln, const float* w1,
-    const float* b1, const float* w2, const float* b2, float* xbuf,
-    float* qkv, float* attn, float* part, float* hbuf, float* out,
+    const elem_t* x, const int* lengths, const elem_t* w_qkv,
+    const elem_t* b_qkv, const elem_t* w_o, const elem_t* b_o,
+    const elem_t* rel_k, const elem_t* rel_v, const elem_t* ln,
+    const elem_t* w1, const elem_t* b1, const elem_t* w2, const elem_t* b2,
+    elem_t* xbuf, float* qkv, elem_t* attn, float* part, elem_t* hbuf,
+    elem_t* out,
     long long* stamps, int B,
     int T, int H, int F, int L, int n_heads, int window, int ffn_k,
     int grid, int split_o, int per_o, int split_2, int per_2, float scale,

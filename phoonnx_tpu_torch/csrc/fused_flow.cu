@@ -42,27 +42,36 @@
 // Masking follows the TPU kernel: pre output, each residual update, the
 // skip sum and the coupled half are zeroed past the length; the
 // pass-through half is never masked.
+//
+// bfloat16 (built with -DPHX_BF16, persist.cuh): the input, the weights
+// and the output are bf16 and everything else is float32, as in the TPU
+// kernel (its halves live in float32 scratch across the flows and the
+// output is rounded once): the halves are then a float32 scratch `xs`
+// beside the output, which the last flow's post phase rounds into it. In
+// the float32 build `xs` is the output itself.
 
 #include "persist.cuh"
 
 namespace {
 
+using namespace phx;
 using namespace phx::ps;
 namespace cg = cooperative_groups;
 
 struct FlowArgs {
-  const float* x;
-  float* out;
+  const elem_t* x;
+  elem_t* out;
   const int* len;
   const float* g;  // [B, n_flows, n_layers, 2*hidden] (interleaved) or null
-  const float* w_pre;
-  const float* b_pre;
-  const float* w_in;
-  const float* b_in;
-  const float* w_rs;
-  const float* b_rs;
-  const float* w_post;
-  const float* b_post;
+  const elem_t* w_pre;
+  const elem_t* b_pre;
+  const elem_t* w_in;
+  const elem_t* b_in;
+  const elem_t* w_rs;
+  const elem_t* b_rs;
+  const elem_t* w_post;
+  const elem_t* b_post;
+  float* xs;  // the halves [B, T, 2*half] (the output in float32)
   float* hbuf;
   float* acts;
   float* skip;
@@ -72,9 +81,9 @@ struct FlowArgs {
 
 // One product phase over [B, T] x n_valid outputs (weight columns from
 // `base`): epi(b, t, n, v[TN]) gets a thread's adjacent columns n, n+1.
-template <class Epi>
+template <class E, class Epi>
 __device__ void phase(GemmSmem& sm, const FlowArgs& a, const Conv& cv,
-                      int n_valid, int base, const Rows& rows, Epi epi) {
+                      int n_valid, int base, const Rows<E>& rows, Epi epi) {
   const int tiles_m = cdiv(a.T, BM);
   const int tiles_n = cdiv(n_valid, BN);
   const int items = tiles_m * tiles_n * a.B;
@@ -117,25 +126,28 @@ flow_persistent(FlowArgs a) {
     const int src = even ? half : 0;
     const int dst = even ? 0 : half;
 
-    // pre (the first flow also copies the input to the output)
+    // pre (the first flow also copies the input to the halves)
     if (f == 0) {
       const size_t n = (size_t)B * T * C;
       for (size_t i = (size_t)blockIdx.x * NT + threadIdx.x; i < n;
            i += (size_t)gridDim.x * NT)
-        a.out[i] = a.x[i];
+        a.xs[i] = ld(a.x + i);
     }
     {
       const Conv cv{a.w_pre + (size_t)f * half * h, half, h, 1, 1, 0};
-      const float* bias = a.b_pre + (size_t)f * h;
+      const elem_t* bias = a.b_pre + (size_t)f * h;
       float* hbuf = a.hbuf;
-      phase(sm, a, cv, h, 0, Rows{f == 0 ? a.x : a.out, T, C, src, nullptr},
-            [=](int b, int t, int n, const float (&v)[TN]) {
+      const auto epi = [=](int b, int t, int n, const float (&v)[TN]) {
 #pragma unroll
-              for (int j = 0; j < TN; ++j)
-                if (n + j < h)
-                  hbuf[((size_t)b * T + t) * h + n + j] =
-                      t < len[b] ? v[j] + __ldg(bias + n + j) : 0.f;
-            });
+        for (int j = 0; j < TN; ++j)
+          if (n + j < h)
+            hbuf[((size_t)b * T + t) * h + n + j] =
+                t < len[b] ? v[j] + ldg_f(bias + n + j) : 0.f;
+      };
+      if (f == 0)
+        phase(sm, a, cv, h, 0, Rows<elem_t>{a.x, T, C, src, nullptr}, epi);
+      else
+        phase(sm, a, cv, h, 0, Rows<float>{a.xs, T, C, src, nullptr}, epi);
     }
     sync();
 
@@ -148,14 +160,14 @@ flow_persistent(FlowArgs a) {
       {
         const Conv cv{a.w_in + fl * a.k * h * h2, h, h2, a.k, d,
                       (a.k * d - d) / 2};
-        const float* bias = a.b_in + fl * h2;
+        const elem_t* bias = a.b_in + fl * h2;
         const float* g = a.g;
         const size_t g_stride = (size_t)a.n_flows * a.n_layers * h2;
         float* acts = a.acts;
-        phase(sm, a, cv, h2, 0, Rows{a.hbuf, T, h, 0, nullptr},
+        phase(sm, a, cv, h2, 0, Rows<float>{a.hbuf, T, h, 0, nullptr},
               [=](int b, int t, int n, const float (&v)[TN]) {
-                float za = v[0] + __ldg(bias + n);
-                float zb = v[1] + __ldg(bias + n + 1);
+                float za = v[0] + ldg_f(bias + n);
+                float zb = v[1] + ldg_f(bias + n + 1);
                 if (g != nullptr) {
                   const float* gr = g + b * g_stride + fl * h2;
                   za += __ldg(gr + n);
@@ -172,18 +184,19 @@ flow_persistent(FlowArgs a) {
         const bool last = i == a.n_layers - 1;
         const bool first = i == 0;
         const Conv cv{a.w_rs + fl * h * h2, h, h2, 1, 1, 0};
-        const float* bias = a.b_rs + fl * h2;
+        const elem_t* bias = a.b_rs + fl * h2;
         float* hbuf = a.hbuf;
         float* skip = a.skip;
         const int base = last ? h : 0;
-        phase(sm, a, cv, last ? h : h2, base, Rows{a.acts, T, h, 0, nullptr},
+        phase(sm, a, cv, last ? h : h2, base,
+              Rows<float>{a.acts, T, h, 0, nullptr},
               [=](int b, int t, int n, const float (&v)[TN]) {
                 const size_t row = (size_t)b * T + t;
 #pragma unroll
                 for (int j = 0; j < TN; ++j) {
                   const int c = base + n + j;
                   if (c >= h2) continue;
-                  const float y = v[j] + __ldg(bias + c);
+                  const float y = v[j] + ldg_f(bias + c);
                   if (c < h) {
                     float* p = hbuf + row * h + c;
                     *p = t < len[b] ? *p + y : 0.f;
@@ -197,18 +210,33 @@ flow_persistent(FlowArgs a) {
       sync();
     }
 
-    // post: coupled half = mask * (x1 - m)
+    // post: coupled half = mask * (x1 - m); in bf16 the last flow also
+    // rounds both halves into the output (the pass-through half is final
+    // and no phase writes it now)
     {
       const Conv cv{a.w_post + (size_t)f * h * half, h, half, 1, 1, 0};
-      const float* bias = a.b_post + (size_t)f * half;
-      float* out = a.out;
-      phase(sm, a, cv, half, 0, Rows{a.skip, T, h, 0, len},
+      const elem_t* bias = a.b_post + (size_t)f * half;
+      float* xs = a.xs;
+      elem_t* out = a.out;
+      const bool round_out = !kElemFloat && f == a.n_flows - 1;
+      if (round_out) {
+        const size_t n = (size_t)B * T * half;
+        for (size_t i = (size_t)blockIdx.x * NT + threadIdx.x; i < n;
+             i += (size_t)gridDim.x * NT) {
+          const size_t e = (i / half) * C + src + i % half;
+          st(out + e, xs[e]);
+        }
+      }
+      phase(sm, a, cv, half, 0, Rows<float>{a.skip, T, h, 0, len},
             [=](int b, int t, int n, const float (&v)[TN]) {
 #pragma unroll
               for (int j = 0; j < TN; ++j) {
                 if (n + j >= half) continue;
-                float* p = out + ((size_t)b * T + t) * C + dst + n + j;
-                *p = t < len[b] ? *p - (v[j] + __ldg(bias + n + j)) : 0.f;
+                const size_t e = ((size_t)b * T + t) * C + dst + n + j;
+                const float y =
+                    t < len[b] ? xs[e] - (v[j] + ldg_f(bias + n + j)) : 0.f;
+                xs[e] = y;
+                if (round_out) st(out + e, y);
               }
             });
     }
@@ -232,18 +260,25 @@ extern "C" int fused_flow_occupancy(int* out) {
 // (fused_flow.build_spec), in processing order. grid must not exceed
 // what fused_flow_occupancy reports (a cooperative launch is refused
 // otherwise).
+//
+// Tensors are of the build's element type (float32, or bf16 with
+// -DPHX_BF16) but for g_all and the scratch, which are float32. xs is
+// float32 scratch [B, T, 2*half] in the bf16 build; the float32 build
+// takes null and keeps the halves in `out`.
 extern "C" int fused_flow_reverse(
-    const float* x, float* out, const int* lengths, const float* g_all,
-    const float* w_pre, const float* b_pre, const float* w_in,
-    const float* b_in, const float* w_rs, const float* b_rs,
-    const float* w_post, const float* b_post, float* hbuf, float* acts,
-    float* skip, long long* stamps, int B, int T, int half, int hidden, int k,
-    int dil_rate,
-    int n_layers, int n_flows, int grid, void* stream_ptr) {
+    const elem_t* x, elem_t* out, const int* lengths, const float* g_all,
+    const elem_t* w_pre, const elem_t* b_pre, const elem_t* w_in,
+    const elem_t* b_in, const elem_t* w_rs, const elem_t* b_rs,
+    const elem_t* w_post, const elem_t* b_post, float* xs, float* hbuf,
+    float* acts, float* skip, long long* stamps, int B, int T, int half,
+    int hidden, int k, int dil_rate, int n_layers, int n_flows, int grid,
+    void* stream_ptr) {
+  float* halves = kElemFloat ? reinterpret_cast<float*>(out) : xs;
+  if (halves == nullptr) return (int)cudaErrorInvalidValue;
   const FlowArgs args{x,     out,   lengths, g_all,  w_pre,  b_pre,
                       w_in,  b_in,  w_rs,    b_rs,   w_post, b_post,
-                      hbuf,  acts,  skip,    stamps, B,      T,      half,
-                      hidden, k,    dil_rate, n_layers, n_flows};
+                      halves, hbuf, acts,    skip,   stamps, B,      T,
+                      half,  hidden, k,      dil_rate, n_layers, n_flows};
   return (int)launch_cooperative(flow_persistent, args, grid, 0,
                                  static_cast<cudaStream_t>(stream_ptr));
 }

@@ -25,6 +25,11 @@
 // units are walked from a small host-side program
 // (fused_stage.build_group_spec), one launch per conv; a persistent
 // launch per stage is still to come.
+//
+// bfloat16 (built with -DPHX_BF16): the stage tensors, the weights and the
+// audio are bf16, and the functors below round where the TPU kernel
+// stores in bf16 (tapconv.cuh); the tail reads the bf16 group output and
+// keeps its float32 dot and tanh.
 
 #include "tapconv.cuh"
 
@@ -38,7 +43,7 @@ constexpr int POST_ROWS = 128;
 // reads x [B, T, C] on rows [0, end(b)) and applies the functor to each
 // element it stages)
 struct LreluMaskPro {
-  const float* x;
+  const elem_t* x;
   int T, C;
   const int* valid;
   float slope;
@@ -46,45 +51,46 @@ struct LreluMaskPro {
   __device__ float operator()(float v) const { return fmaxf(v, slope * v); }
 };
 
-// Y = R + v (end of a residual unit)
+// Y = R + v (end of a residual unit; bf16: R + round(v), rounded)
 struct ResidualEpi {
-  const float* r;
-  float* y;
+  const elem_t* r;
+  elem_t* y;
   int T, C;
   __device__ float2 load(int b, int t, int n) const {
-    return {r[((size_t)b * T + t) * C + n], 0.f};
+    return {to_f(r[((size_t)b * T + t) * C + n]), 0.f};
   }
   __device__ void store(int b, int t, int n, float v, float2 in) const {
-    y[((size_t)b * T + t) * C + n] = in.x + v;
+    st(y + ((size_t)b * T + t) * C + n, in.x + round_elem(v));
   }
 };
 
 // End of a branch: acc = [acc +] (R + v); the last branch divides by the
 // branch count and masks the output rows.
+// (bf16: each sum and the mean rounded, as the TPU kernel's bf16 adds)
 struct BranchEpi {
-  const float* r;
-  float* acc;
+  const elem_t* r;
+  elem_t* acc;
   int T, C;
   const int* valid;
   int first, last, n_branches;
   __device__ float2 load(int b, int t, int n) const {
     const size_t i = ((size_t)b * T + t) * C + n;
-    return {r[i], first ? 0.f : acc[i]};
+    return {to_f(r[i]), first ? 0.f : to_f(acc[i])};
   }
   __device__ void store(int b, int t, int n, float v, float2 in) const {
-    float out = in.x + v;  // R + v
-    if (!first) out = in.y + out;
+    float out = round_elem(in.x + round_elem(v));  // R + v
+    if (!first) out = round_elem(in.y + out);
     if (last) out = t < valid[b] ? out / (float)n_branches : 0.f;
-    acc[((size_t)b * T + t) * C + n] = out;
+    st(acc + ((size_t)b * T + t) * C + n, out);
   }
 };
 
 // audio[b, t] = tanh(bias + sum_j sum_c lrelu(acc[t + j - pad], slope) * Wp[j, c])
 __global__ void __launch_bounds__(POST_ROWS)
-post_kernel(const float* __restrict__ acc, const int* __restrict__ valid,
-            const float* __restrict__ wp, const float* __restrict__ bias,
+post_kernel(const elem_t* __restrict__ acc, const int* __restrict__ valid,
+            const elem_t* __restrict__ wp, const elem_t* __restrict__ bias,
             int T, int C, int P, int pad, float slope,
-            float* __restrict__ audio) {
+            elem_t* __restrict__ audio) {
   extern __shared__ float win[];  // [POST_ROWS + P - 1][C]
   const int b = blockIdx.y;
   const int t0 = blockIdx.x * POST_ROWS;
@@ -94,8 +100,8 @@ post_kernel(const float* __restrict__ acc, const int* __restrict__ valid,
     const int s = t0 - pad + i / C;
     float v = 0.f;
     if (s >= 0 && s < T && s < vb) {
-      v = acc[((size_t)b * T + s) * C + i % C];
-      v = fmaxf(v, slope * v);
+      v = to_f(acc[((size_t)b * T + s) * C + i % C]);
+      v = round_elem(fmaxf(v, slope * v));
     }
     win[i] = v;
   }
@@ -105,10 +111,10 @@ post_kernel(const float* __restrict__ acc, const int* __restrict__ valid,
   float sum = 0.f;
   for (int j = 0; j < P; ++j) {
     const float* row = win + (threadIdx.x + j) * C;
-    const float* w = wp + j * C;
-    for (int c = 0; c < C; ++c) sum = fmaf(row[c], w[c], sum);
+    const elem_t* w = wp + j * C;
+    for (int c = 0; c < C; ++c) sum = fmaf(row[c], to_f(w[c]), sum);
   }
-  audio[(size_t)b * T + t] = tanhf(sum + bias[0]);
+  st(audio + (size_t)b * T + t, tanhf(sum + to_f(bias[0])));
 }
 
 }  // namespace
@@ -121,22 +127,26 @@ constexpr int PROG_COLS = 8;
 // mean), or audio [B, T] when post_w is set. W [n_taps, C, C] and bias
 // [n_convs, C] are the stacked spec; ping/pong/tmp [B, T, C] scratch
 // (tmp only for units of more than one conv, else null).
+//
+// Tensors are of the build's element type (float32, or bf16 with
+// -DPHX_BF16); slope and post_slope as the kernel multiplies by them (in
+// bf16, rounded to bf16 as the TPU kernel's weakly typed constants are).
 extern "C" int fused_stage_group(
-    const float* x, const int* valid, const float* W, const float* bias,
-    const int* prog, int n_convs, int n_branches, float* ping, float* pong,
-    float* tmp, float* acc, const float* post_w, const float* post_b,
-    int post_taps, int post_pad, float post_slope, float* audio, int B,
+    const elem_t* x, const int* valid, const elem_t* W, const elem_t* bias,
+    const int* prog, int n_convs, int n_branches, elem_t* ping, elem_t* pong,
+    elem_t* tmp, elem_t* acc, const elem_t* post_w, const elem_t* post_b,
+    int post_taps, int post_pad, float post_slope, elem_t* audio, int B,
     int T, int C, float slope, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   int dev = 0, sms = 0;
   PHX_TRY(cudaGetDevice(&dev));
   PHX_TRY(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev));
-  const float* unit_in = x;  // residual source of the current unit
-  const float* conv_in = x;
+  const elem_t* unit_in = x;  // residual source of the current unit
+  const elem_t* conv_in = x;
   for (int i = 0; i < n_convs; ++i) {
     const int* row = prog + i * PROG_COLS;
-    const float* w = W + (size_t)row[0] * C * C;
-    const float* bvec = bias + (size_t)row[4] * C;
+    const elem_t* w = W + (size_t)row[0] * C * C;
+    const elem_t* bvec = bias + (size_t)row[4] * C;
     const int branch = row[5];
     const bool last_in_unit = row[6] != 0;
     const bool last_unit = row[7] != 0;
@@ -155,7 +165,7 @@ extern "C" int fused_stage_group(
                       stream));
       unit_in = conv_in = x;  // the next branch starts from the stage input
     } else {
-      float* next = unit_in == ping ? pong : ping;
+      elem_t* next = unit_in == ping ? pong : ping;
       PHX_TRY(tapconv(tile, w, bvec, B, T, C, C, row[1], row[2], row[3], pro,
                       ResidualEpi{unit_in, next, T, C}, stream));
       unit_in = conv_in = next;

@@ -28,6 +28,16 @@
 // (adjacent, so a warp reads a slab row as one 128-byte line).
 // Arithmetic is float32 FMA on the SIMT cores.
 //
+// Element type (elem.cuh): a library is built for float32 tensors, or
+// with -DPHX_BF16 for bfloat16 ones (elem_t: the type of the inputs, the
+// weights and the outputs in device memory). The arithmetic and the
+// shared-memory slabs stay float32 in both. A bf16 slab is staged through
+// registers: each thread loads its four elements (8 bytes, through L2),
+// converts them exactly to float32 and stores them into the same float32
+// slab that cp.async fills for float32 operands, so the product loop is
+// the same code for both types. Those loads are synchronous where
+// cp.async is not (speed is a later change; see ROADMAP.md).
+//
 // The work partition (tile order, split-K parts, tiles to blocks) is
 // mirrored by phoonnx_tpu_torch/tiling.py, which chooses the split
 // factors and the grid and whose tests check that the tiles cover every
@@ -39,6 +49,8 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "elem.cuh"
 
 namespace phx {
 namespace ps {
@@ -101,20 +113,45 @@ __device__ __forceinline__ void copy4(float* dst, const float* src, int n) {
   }
 }
 
+// Stage 4 bf16 elements src[0..3] as float32 into dst[0..3] (16-byte
+// aligned), of which the first `n` exist; through registers, read via L2.
+__device__ __forceinline__ void copy4(float* dst, const __nv_bfloat16* src,
+                                      int n) {
+  const unsigned short* s = reinterpret_cast<const unsigned short*>(src);
+  float4 v;
+  if (n >= 4 && (reinterpret_cast<uintptr_t>(s) & 7) == 0) {
+    const uint2 raw = __ldcg(reinterpret_cast<const uint2*>(s));
+    v = make_float4(__uint_as_float(raw.x << 16),
+                    __uint_as_float(raw.x & 0xffff0000u),
+                    __uint_as_float(raw.y << 16),
+                    __uint_as_float(raw.y & 0xffff0000u));
+  } else {
+    float e[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) e[i] = i < n ? bf16_bits(__ldcg(s + i)) : 0.f;
+    v = make_float4(e[0], e[1], e[2], e[3]);
+  }
+  *reinterpret_cast<float4*>(dst) = v;
+}
+
 // A buffer another block wrote earlier in the same launch: read through
 // L2 only (never the read-only path, which is not coherent within a
 // launch).
 __device__ __forceinline__ float ld(const float* p) { return __ldcg(p); }
+__device__ __forceinline__ float ld(const __nv_bfloat16* p) {
+  return bf16_bits(__ldcg(reinterpret_cast<const unsigned short*>(p)));
+}
 
 // The activation operand: row s of batch element b is
 // x[(b * T + s) * pitch + coff + c] for c < Cin, or all zeros when
 // s >= len[b] (len null: no row is masked). Rows outside [0, T) are the
-// conv's zero padding.
+// conv's zero padding. E: float or elem_t.
+template <class E>
 struct Rows {
-  const float* x;
+  const E* x;
   int T, pitch, coff;
   const int* len;
-  __device__ const float* row(int b, int s) const {
+  __device__ const E* row(int b, int s) const {
     if (s < 0 || s >= T || (len != nullptr && s >= len[b])) return nullptr;
     return x + ((size_t)b * T + s) * pitch + coff;
   }
@@ -130,7 +167,7 @@ struct Cols {
 
 // One product: W is [J, Cin, ldw] row-major.
 struct Conv {
-  const float* W;
+  const elem_t* W;
   int Cin, ldw, J, dil, pad;
   __device__ int slabs() const { return J * ((Cin + BK - 1) / BK); }
 };
@@ -141,8 +178,9 @@ __device__ __forceinline__ int thread_col() { return threadIdx.x % TX; }
 // acc = the tile's product over slabs [q0, q1), a ring of NS slabs in
 // flight. Ends with a block barrier, so the shared buffers are free for
 // the next tile when it returns.
+template <class E>
 __device__ void gemm_tile(GemmSmem& sm, const Conv& cv, const Cols& cols,
-                          const Rows& rows, int b, int t0, int q0, int q1,
+                          const Rows<E>& rows, int b, int t0, int q0, int q1,
                           float (&acc)[TM][TN]) {
   const int tid = threadIdx.x;
   const int ty = thread_row();
@@ -163,11 +201,11 @@ __device__ void gemm_tile(GemmSmem& sm, const Conv& cv, const Cols& cols,
         const int id = tid + r * NT;
         const int m = id / (BK / 4);
         const int k = (id % (BK / 4)) * 4;
-        const float* src = rows.row(b, t0 + m + j * cv.dil - cv.pad);
+        const E* src = rows.row(b, t0 + m + j * cv.dil - cv.pad);
         copy4(&sm.A[buf][m][k], src + c0 + k,
               src == nullptr ? 0 : cv.Cin - c0 - k);
       }
-      const float* wj = cv.W + (size_t)j * cv.Cin * cv.ldw;
+      const elem_t* wj = cv.W + (size_t)j * cv.Cin * cv.ldw;
 #pragma unroll
       for (int r = 0; r < B_CHUNKS; ++r) {
         const int id = tid + r * NT;

@@ -57,7 +57,21 @@
 //   grid ran in two waves and its convs took up to 2.3x as long (same
 //   card).
 //
-// Not yet: one persistent launch per stage (each conv is one launch).
+// bfloat16 (built with -DPHX_BF16, elem.cuh): the window, the weights and
+// the outputs are bf16 in device memory. A bf16 value is exactly a TF32
+// one (8 significant bits against 10) and the TPU kernel rounds each
+// leaky-ReLU activation to bf16 before its products, so every lo half is
+// 0 and ONE TF32 pass gives exact products with a float32 sum. The slabs
+// land in bf16 (cp.async of 8 elements where the channels allow; the
+// ring holds the raw window and the weights in bf16); the transform
+// writes round_bf16(pro(x)) as float32 into one hi buffer after the
+// ring, where float32 keeps lo; the weights become TF32 operands at
+// fragment load (a shift of their bits). The epilogues round where the
+// TPU kernel stores in bf16: each conv output, each residual sum, the
+// branch sum and mean, and the audio.
+//
+// Not yet: one persistent launch per stage (each conv is one launch); a
+// native bf16 mma.sync m16n8k16 path for the bf16 build.
 
 #pragma once
 
@@ -65,6 +79,8 @@
 
 #include <cstddef>
 #include <cstdint>
+
+#include "elem.cuh"
 
 namespace phx {
 
@@ -101,7 +117,8 @@ __host__ __device__ inline int tap_window_rows(int bm, int taps, int dil) {
 }
 
 // Dynamic shared memory of a block: the ring of (window, weights) slabs
-// and the window's lo half.
+// and the window's lo half. (The bf16 build's ring of bf16 slabs and its
+// float32 hi window take less; it is given the same.)
 __host__ __device__ inline size_t tap_smem_bytes(int bm, int bn, int bk,
                                                  int taps, int dil) {
   const size_t win = (size_t)tap_window_rows(bm, taps, dil) * (bk + 4);
@@ -186,6 +203,22 @@ __device__ __forceinline__ void tap_copy4(float* dst, const float* src,
   }
 }
 
+// Copy 8 two-byte elements (bf16) src[0..7] to dst[0..7] (16-byte
+// aligned), of which the first `n` exist; the rest are zero-filled. (A
+// template so that the float32 build, which never calls it, compiles the
+// bf16 branches it discards.)
+template <class E>
+__device__ __forceinline__ void tap_copy8(E* dst, const E* src, int n) {
+  if (n >= 8 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    tap_cp16(dst, src);
+    return;
+  }
+  const unsigned short* s = reinterpret_cast<const unsigned short*>(src);
+  unsigned short* d = reinterpret_cast<unsigned short*>(dst);
+#pragma unroll
+  for (int e = 0; e < 8; ++e) d[e] = e < n ? __ldcg(s + e) : 0;
+}
+
 // x = hi + lo to ~2^-22 relative, hi = cvt.rna.tf32.f32(x) and
 // lo = cvt.rna.tf32.f32(x - hi) for finite x: half a TF32 ulp added to
 // the magnitude bits rounds to nearest, ties away from zero, and the
@@ -227,12 +260,15 @@ __device__ __forceinline__ int tap_log2(int v) { return 31 - __clz(v); }
 
 // ---- the kernel ------------------------------------------------------------
 
-// Shared memory: stage s holds the window [R][BK + 4] (raw, then hi in
-// place) and the weights [k][BK][BN + 8]; after the stages, the window's
-// lo half [R][BK + 4]. Rows of the window are global rows t0 - pad + r.
+// Shared memory (float32): stage s holds the window [R][BK + 4] (raw,
+// then hi in place) and the weights [k][BK][BN + 8]; after the stages,
+// the window's lo half [R][BK + 4]. (bf16: stage s holds the raw window
+// [R][BK + 8] and the weights [k][BK][BN + 8] in bf16; after the stages,
+// the window's hi [R][BK + 4] in float32.) Rows of the window are global
+// rows t0 - pad + r.
 template <int BM, int BN, int WN, class Pro, class Epi>
 __global__ void __launch_bounds__((BM / TAP_WARP_ROWS) * (BN / WN) * 32)
-tapconv_kernel(const float* __restrict__ W, const float* __restrict__ bias,
+tapconv_kernel(const elem_t* __restrict__ W, const elem_t* __restrict__ bias,
                int T, int Cin, int N, int J, int dil, int pad, int bk,
                Pro pro, Epi epi) {
   constexpr int WARPS_N = BN / WN;
@@ -244,10 +280,13 @@ tapconv_kernel(const float* __restrict__ W, const float* __restrict__ bias,
   extern __shared__ __align__(16) float smem[];
 
   const int R = tap_window_rows(BM, J, dil);
-  const int ap = bk + 4;  // window row pitch
+  const int ap = bk + 4;  // window row pitch (float32)
+  const int rp = bk + 8;  // raw window row pitch (bf16)
   const int log_bk = tap_log2(bk);
   const int win = R * ap;
-  const int stage = win + J * bk * BP;
+  // a stage in floats (the bf16 one is even: rp and BP are)
+  const int stage = kElemFloat ? win + J * bk * BP : (R * rp + J * bk * BP) / 2;
+  // float32: the window's lo half; bf16: its hi
   float* lo = smem + TAP_STAGES * stage;
 
   const int b = blockIdx.z;
@@ -263,7 +302,7 @@ tapconv_kernel(const float* __restrict__ W, const float* __restrict__ bias,
   const int s0 = t0 - pad;  // global row of window row 0
   const int end = pro.end(b);
   const int slabs = tap_cdiv(Cin, bk);
-  const float* xb = pro.x + (size_t)b * T * Cin;
+  const elem_t* xb = pro.x + (size_t)b * T * Cin;
 
   float acc[MT][NT][4];
 #pragma unroll
@@ -275,6 +314,32 @@ tapconv_kernel(const float* __restrict__ W, const float* __restrict__ bias,
 
   // window rows outside [0, end) are not copied: the transform zeroes them
   auto fetch = [&](int slab) {
+    if constexpr (!kElemFloat) {
+      if (slab < slabs) {
+        elem_t* raw = reinterpret_cast<elem_t*>(smem + (slab % TAP_STAGES) * stage);
+        elem_t* wbf = raw + R * rp;
+        const int c0 = slab * bk;
+        const int log_cw = log_bk - 3;  // 8-element chunks of a window row
+        for (int i = tid; i < (R << log_cw); i += NTHREADS) {
+          const int r = i >> log_cw;
+          const int k = (i & ((1 << log_cw) - 1)) * 8;
+          const int s = s0 + r;
+          if (s < 0 || s >= end) continue;
+          tap_copy8(raw + r * rp + k, xb + (size_t)s * Cin + c0 + k,
+                    Cin - c0 - k);
+        }
+        for (int i = tid; i < ((J * (BN / 8)) << log_bk); i += NTHREADS) {
+          const int n = (i % (BN / 8)) * 8;
+          const int jk = i / (BN / 8);  // tap * bk + channel in the slab
+          const int j = jk >> log_bk;
+          const int c = c0 + (jk & (bk - 1));
+          tap_copy8(wbf + jk * BP + n, W + ((size_t)j * Cin + c) * N + n0 + n,
+                    c < Cin ? N - n0 - n : 0);
+        }
+      }
+      tap_commit();
+      return;
+    }
     if (slab < slabs) {
       float* wbuf = smem + (slab % TAP_STAGES) * stage;
       float* bbuf = wbuf + win;
@@ -285,7 +350,8 @@ tapconv_kernel(const float* __restrict__ W, const float* __restrict__ bias,
         const int k = (i & ((1 << log_cw) - 1)) * 4;
         const int s = s0 + r;
         if (s < 0 || s >= end) continue;
-        tap_copy4(wbuf + r * ap + k, xb + (size_t)s * Cin + c0 + k,
+        tap_copy4(wbuf + r * ap + k,
+                  reinterpret_cast<const float*>(xb) + (size_t)s * Cin + c0 + k,
                   Cin - c0 - k);
       }
       for (int i = tid; i < ((J * NCH) << log_bk); i += NTHREADS) {
@@ -294,15 +360,31 @@ tapconv_kernel(const float* __restrict__ W, const float* __restrict__ bias,
         const int j = jk >> log_bk;
         const int c = c0 + (jk & (bk - 1));
         tap_copy4(bbuf + jk * BP + n,
-                  W + ((size_t)j * Cin + c) * N + n0 + n,
+                  reinterpret_cast<const float*>(W) + ((size_t)j * Cin + c) * N
+                      + n0 + n,
                   c < Cin ? N - n0 - n : 0);
       }
     }
     tap_commit();
   };
 
-  // the prologue and the hi/lo split, once per window element
+  // the prologue and the hi/lo split, once per window element (bf16: the
+  // prologue rounded to bf16, as float32 into hi; no lo)
   auto transform = [&](int slab) {
+    if constexpr (!kElemFloat) {
+      const elem_t* raw = reinterpret_cast<const elem_t*>(smem + (slab % TAP_STAGES) * stage);
+      const int c0 = slab * bk;
+      for (int i = tid; i < (R << log_bk); i += NTHREADS) {
+        const int r = i >> log_bk;
+        const int k = i & (bk - 1);
+        const int s = s0 + r;
+        float v = 0.f;
+        if (s >= 0 && s < end && c0 + k < Cin)
+          v = round_elem(pro(to_f(raw[r * rp + k])));
+        lo[r * ap + k] = v;
+      }
+      return;
+    }
     float* wbuf = smem + (slab % TAP_STAGES) * stage;
     const int c0 = slab * bk;
     for (int i = tid; i < (R << log_bk); i += NTHREADS) {
@@ -322,6 +404,31 @@ tapconv_kernel(const float* __restrict__ W, const float* __restrict__ bias,
   const int lrow = (lane & 7) + 8 * ((lane >> 3) & 1);
   const int lcol = 4 * (lane >> 4);
   auto compute = [&](int slab) {
+    if constexpr (!kElemFloat) {
+      // one TF32 pass: hi holds bf16 values, the weights are bf16
+      const unsigned short* wb = reinterpret_cast<const unsigned short*>(
+          smem + (slab % TAP_STAGES) * stage) + R * rp;
+      for (int j = 0; j < J; ++j) {
+        const int row = wm0 + lrow + j * dil;
+        for (int kk = 0; kk < bk; kk += 8) {
+          uint32_t ah[MT][4], bh[NT][2];
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+            ldsm_x4(ah[mt], lo + (row + mt * 16) * ap + kk + lcol);
+          const unsigned short* wk = wb + (j * bk + kk + q) * BP + wn0 + g;
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) {
+            bh[nt][0] = static_cast<uint32_t>(wk[nt * 8]) << 16;
+            bh[nt][1] = static_cast<uint32_t>(wk[nt * 8 + 4 * BP]) << 16;
+          }
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt) mma_tf32(acc[mt][nt], ah[mt], bh[nt]);
+        }
+      }
+      return;
+    }
     const float* hi = smem + (slab % TAP_STAGES) * stage;
     const float* wb = hi + win;
     for (int j = 0; j < J; ++j) {
@@ -398,7 +505,7 @@ tapconv_kernel(const float* __restrict__ W, const float* __restrict__ bias,
           if (n < N)
             epi.store(b, t, n,
                       acc[mt][nt][2 * h + e] +
-                          (bias != nullptr ? bias[n] : 0.f),
+                          (bias != nullptr ? to_f(bias[n]) : 0.f),
                       in[h][nt][e]);
         }
     }
@@ -406,8 +513,8 @@ tapconv_kernel(const float* __restrict__ W, const float* __restrict__ bias,
 }
 
 template <int BM, int BN, int WN, class Pro, class Epi>
-cudaError_t tapconv_launch(const TapTile& tile, const float* W,
-                           const float* bias, int B, int T, int Cin, int N,
+cudaError_t tapconv_launch(const TapTile& tile, const elem_t* W,
+                           const elem_t* bias, int B, int T, int Cin, int N,
                            int J, int dil, int pad, Pro pro, Epi epi,
                            cudaStream_t stream) {
   auto kernel = tapconv_kernel<BM, BN, WN, Pro, Epi>;
@@ -425,7 +532,7 @@ cudaError_t tapconv_launch(const TapTile& tile, const float* W,
 // One conv on `stream` over a [B, T] x N output, with the tile tap_tile
 // chose; returns the launch status.
 template <class Pro, class Epi>
-cudaError_t tapconv(const TapTile& tile, const float* W, const float* bias,
+cudaError_t tapconv(const TapTile& tile, const elem_t* W, const elem_t* bias,
                     int B, int T, int Cin, int N, int J, int dil, int pad,
                     Pro pro, Epi epi, cudaStream_t stream) {
 #define PHX_TAP_CASE(i)                                                     \
@@ -454,11 +561,11 @@ cudaError_t tapconv(const TapTile& tile, const float* W, const float* bias,
 
 // Y = v
 struct StoreEpi {
-  float* y;
+  elem_t* y;
   int T, ld;
   __device__ float2 load(int, int, int) const { return {0.f, 0.f}; }
   __device__ void store(int b, int t, int n, float v, float2) const {
-    y[((size_t)b * T + t) * ld + n] = v;
+    st(y + ((size_t)b * T + t) * ld + n, v);
   }
 };
 

@@ -6,7 +6,13 @@ build happens at first use, from the sources in this package only, into
 ``build/phoonnx_tpu_torch/<hash>/`` beside the package, keyed by a hash
 of the sources and flags, so an edited source rebuilds and an unchanged
 one is reused. :func:`build` compiles every library at once, one ``nvcc``
-process per source, all started together.
+process per library, all started together.
+
+Kernels A, B and C take float32 or bfloat16 tensors: each of their
+sources is compiled twice, as ``lib<name>.so`` (float32) and
+``lib<name>_bf16.so`` (the same source with ``-DPHX_BF16``, which sets
+the element type the kernel loads and stores; its arithmetic stays
+float32). :func:`library` names the build a dtype takes.
 
 Importing this module touches neither ``nvcc`` nor the card: the CPU
 test suite imports every module of the port.
@@ -27,7 +33,10 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "phoonnx_tpu_torch"
-LIBRARIES = ("fused_encoder", "fused_flow", "fused_stage", "mas")
+# the kernels built in both element types, and kernel D (float32 only)
+TYPED = ("fused_encoder", "fused_flow", "fused_stage")
+LIBRARIES = (*TYPED, *(f"{name}_bf16" for name in TYPED), "mas")
+BF16_SUFFIX = "_bf16"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -58,6 +67,26 @@ def library_path(name: str) -> Path:
     return BUILD_ROOT / _digest() / f"lib{name}.so"
 
 
+def library(name: str, dtype: torch.dtype) -> str:
+    """The build of kernel source ``name`` for tensors of ``dtype``."""
+    if dtype == torch.float32:
+        return name
+    if dtype == torch.bfloat16 and name in TYPED:
+        return name + BF16_SUFFIX
+    raise TypeError(f"kernel {name} takes float32"
+                    + (" or bfloat16" if name in TYPED else "")
+                    + f" tensors, not {dtype}")
+
+
+def _compile_command(name: str, out: Path) -> list:
+    """nvcc's arguments for library ``name``."""
+    flags = list(NVCC_FLAGS)
+    if name.endswith(BF16_SUFFIX):
+        name = name[:-len(BF16_SUFFIX)]
+        flags.append("-DPHX_BF16")
+    return [_nvcc(), *flags, "-o", str(out), str(CSRC / f"{name}.cu")]
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -81,8 +110,7 @@ def build(names: Iterable[str] = LIBRARIES) -> float:
                 continue
             target.parent.mkdir(parents=True, exist_ok=True)
             partial = target.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(partial),
-                   str(CSRC / f"{name}.cu")]
+            cmd = _compile_command(name, partial)
             procs.append((name, target, partial, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
         errors = []
@@ -152,9 +180,9 @@ def occupancy(library: str, symbol: str, device: torch.device,
 
 
 def scratch(device: torch.device, sizes: Sequence[int]):
-    """One float32 allocation carved into buffers of the given element
-    counts, each 256-byte aligned: (the tensor that owns them, their
-    addresses). One allocation costs the host less than several."""
+    """One float32 allocation carved into buffers of the given counts of
+    4-byte elements, each 256-byte aligned: (the tensor that owns them,
+    their addresses). One allocation costs the host less than several."""
     offsets, total = [], 0
     for n in sizes:
         offsets.append(total)
@@ -164,17 +192,27 @@ def scratch(device: torch.device, sizes: Sequence[int]):
     return buf, [base + 4 * off for off in offsets]
 
 
-def count_launch(module: str) -> None:
-    """One launch of the kernel that the wrapper module ``module`` (its
-    ``__name__``) launches."""
-    LAUNCHES[module] += 1
+def launch_key(module: str, dtype: torch.dtype = torch.float32) -> str:
+    """The ``LAUNCHES`` key of the kernel that the wrapper module
+    ``module`` (its ``__name__``) launches on tensors of ``dtype``: the
+    module's name, with ``_bf16`` for the bfloat16 build."""
+    return module if dtype == torch.float32 else module + BF16_SUFFIX
+
+
+def count_launch(module: str, dtype: torch.dtype = torch.float32) -> None:
+    """One launch of the kernel that the wrapper module ``module``
+    launches, in its build for ``dtype``."""
+    LAUNCHES[launch_key(module, dtype)] += 1
 
 
 def launch_count(module: str, name: str) -> int:
-    """The ``launches`` attribute of a wrapper module, for its module
-    ``__getattr__``: ``LAUNCHES[module]``."""
+    """The ``launches`` and ``launches_bf16`` attributes of a wrapper
+    module, for its module ``__getattr__``: its float32 and bfloat16
+    kernels' counts in ``LAUNCHES``."""
     if name == "launches":
         return LAUNCHES[module]
+    if name == "launches" + BF16_SUFFIX:
+        return LAUNCHES[module + BF16_SUFFIX]
     raise AttributeError(f"module {module!r} has no attribute {name!r}")
 
 

@@ -47,6 +47,7 @@ import torch
 
 from phoonnx_tpu_torch.infer.graphs import Graphs
 from phoonnx_tpu_torch.models.vits import model as vits_model
+from phoonnx_tpu_torch.models.vits import nn
 from phoonnx_tpu_torch.models.vits.model import VitsHParams
 from phoonnx_tpu_torch.ops.stft import spectrogram
 
@@ -62,8 +63,12 @@ DEFAULT_FRAME_BUCKETS = (64, 128, 256, 384, 512, 768, 1024, 1536, 2048,
 # latents on the prefix's first frames.
 FLOW_CONTEXT = 32
 
-# ROADMAP.md port-queue item that brings bf16 and the precision knob
+# ROADMAP.md port-queue item 'bf16', whose matmul-precision knob is the
+# part not ported yet
 BF16_ITEM = "ROADMAP.md, port queue: 'bf16'"
+
+# the engine's dtypes: float32, and bfloat16 as the JAX engine serves
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 PCM16_SCALE = 32767.0
 
@@ -115,8 +120,10 @@ def normal_rows(generator: torch.Generator, rows: int,
 
 def to_pcm16(audio: torch.Tensor) -> torch.Tensor:
     """Clip to 16-bit PCM and truncate toward zero, as the JAX engine's
-    ``_to_pcm16`` (``astype(int16)``) does."""
-    return torch.clamp(audio * PCM16_SCALE, -PCM16_SCALE,
+    ``_to_pcm16`` (``astype(int16)``) does, but in float32 whatever the
+    audio's type: the JAX engine scales bf16 audio in bf16, where samples
+    above 0.5 come in steps of up to 128."""
+    return torch.clamp(audio.float() * PCM16_SCALE, -PCM16_SCALE,
                        PCM16_SCALE).to(torch.int16)
 
 
@@ -158,13 +165,19 @@ class VitsEngine:
         fetch (half the bytes; the WAV output is 16-bit anyway); the host
         converts back to float32 in [-1, 1].
 
-        dtype and matmul_precision: the port computes in float32 at full
-        precision only so far; other values raise.
+        dtype: ``"float32"`` or ``"bfloat16"``. In bfloat16 every floating
+        parameter is cast (as the JAX engine's ``cast_floating``), the
+        scales and the noise reach the programs in bfloat16 (the noise is
+        drawn in float32 from the same generator state, so both dtypes of
+        one seed draw the same noise), durations and frame counts stay
+        float32 and int32, and the kernels take bfloat16 tensors.
+
+        matmul_precision: the port computes products at full precision
+        only so far; other values raise.
         """
-        if dtype != "float32":
+        if dtype not in DTYPES:
             raise ValueError(
-                f"dtype {dtype!r}: phoonnx_tpu_torch computes in float32 only "
-                f"so far ({BF16_ITEM})")
+                f"dtype {dtype!r}: 'float32' or 'bfloat16'")
         if matmul_precision is not None:
             raise ValueError(
                 f"matmul_precision {matmul_precision!r}: phoonnx_tpu_torch "
@@ -179,8 +192,10 @@ class VitsEngine:
         self.frames_per_token = frames_per_token
         self.fetch_pcm16 = fetch_pcm16
         self.device = resolve_device(device)
-        self.params = vits_model.attach_fused_specs(
-            vits_model.params_to_device(params, self.device))
+        self.dtype_str = dtype
+        self.dtype = DTYPES[dtype]
+        self.params = vits_model.attach_fused_specs(nn.cast_floating(
+            vits_model.params_to_device(params, self.device), self.dtype))
         self.graphs = Graphs(self.device) if self.device.type == "cuda" \
             else None
 
@@ -208,8 +223,8 @@ class VitsEngine:
             out.append(VitsEngine(
                 vits_model.detach_fused_specs(self.params), self.hp,
                 text_buckets=self.text_buckets,
-                frame_buckets=self.frame_buckets, mode=self.mode,
-                frames_per_token=self.frames_per_token,
+                frame_buckets=self.frame_buckets, dtype=self.dtype_str,
+                mode=self.mode, frames_per_token=self.frames_per_token,
                 fetch_pcm16=self.fetch_pcm16, device=dev))
         return out
 
@@ -341,14 +356,15 @@ class VitsEngine:
         host, done = copy
         if done is not None:
             done.synchronize()
-        return host.numpy()
+        # bf16 audio crosses in bf16 and becomes float32 here (exactly)
+        return (host.float() if host.dtype == torch.bfloat16
+                else host).numpy()
 
-    @staticmethod
-    def _scales(noise_scale, length_scale, noise_w) -> torch.Tensor:
-        """The programs' ``scales`` input: inputs of the graph, never
-        baked into it."""
+    def _scales(self, noise_scale, length_scale, noise_w) -> torch.Tensor:
+        """The programs' ``scales`` input, in the engine's dtype: inputs of
+        the graph, never baked into it."""
         return torch.tensor([noise_scale, length_scale, noise_w],
-                            dtype=torch.float32)
+                            dtype=self.dtype)
 
     def _batch_inputs(self, batch_ids, speaker_ids, seed: int):
         """Host inputs of a batch padded to its text bucket: (ids int64
@@ -370,7 +386,7 @@ class VitsEngine:
         sid = torch.zeros((batch,), dtype=torch.int64)
         if speaker_ids is not None:
             sid[:] = torch.as_tensor(list(speaker_ids), dtype=torch.int64)
-        return ids, lengths, sid, dp_noise, gens
+        return ids, lengths, sid, dp_noise.to(self.dtype), gens
 
     def _prior(self, gens, frames, rows: int) -> torch.Tensor:
         """[B, rows, C] prior noise: utterance i's first min(frames[i],
@@ -380,7 +396,7 @@ class VitsEngine:
         for i, (gen, n) in enumerate(zip(gens, frames)):
             n = min(int(n), rows)
             prior[i, :n] = normal_rows(gen, n, c)
-        return prior
+        return prior.to(self.dtype)
 
     def _check_speakers(self, speaker_ids) -> None:
         """An out-of-range id would index another speaker's embedding."""
@@ -584,7 +600,7 @@ class VitsEngine:
         scales = self._scales(noise_scale, length_scale, noise_w)
         prior_state = gen.get_state()
         prior_pre = normal_rows(gen, window + FLOW_CONTEXT,
-                                hp.inter_channels)[None]
+                                hp.inter_channels)[None].to(self.dtype)
         audio, m_p, logs_p, w_ceil, x_mask, g, frames = self._run(
             ("first_chunk", t_bucket, chunk, overlap),
             partial(self._first_chunk, window=window,
@@ -666,7 +682,8 @@ class VitsEngine:
         spec = spectrogram(wav.to(self.device), n_fft, hop, n_fft)  # [1, T, C]
         n_frames = spec.shape[1]
         f_bucket = _bucket_for(n_frames, self.frame_buckets)
-        spec = torch.nn.functional.pad(spec, (0, 0, 0, f_bucket - n_frames))
+        spec = torch.nn.functional.pad(
+            spec, (0, 0, 0, f_bucket - n_frames)).to(self.dtype)
         if seed is None:
             seed = int(np.random.randint(0, 2 ** 31 - 1))
         noise = self._prior([torch.Generator().manual_seed(seed)],

@@ -22,6 +22,7 @@ from typing import Optional
 import torch
 
 from phoonnx_tpu_torch import cuda, tiling
+from phoonnx_tpu_torch.models.vits import attention, nn
 
 LIBRARY = "fused_encoder"
 # csrc/fused_encoder.cu: MAX_H (LayerNorm row width), MAX_DK and the
@@ -109,11 +110,59 @@ _WEIGHTS = ("w_qkv", "b_qkv", "w_o", "b_o", "rel_k", "rel_v", "ln",
             "w_ffn1", "b_ffn1", "w_ffn2", "b_ffn2")
 
 
-def plain(spec, x: torch.Tensor, x_mask: torch.Tensor) -> torch.Tensor:
-    """The function the kernel computes, in plain PyTorch ops."""
-    from phoonnx_tpu_torch.models.vits.attention import encoder_plain
+def _plain_rounded(spec, x: torch.Tensor, x_mask: torch.Tensor):
+    """The JAX kernel's function on bf16 storage (``fused_encoder.py``
+    :204-285): the layer's running x in bf16, QKV, scores, softmax and the
+    relative terms in float32, rounded to bf16 at the attention output,
+    at each LayerNorm output and at the FFN hidden."""
+    dt = x.dtype
 
-    return encoder_plain(spec["plain"], x, x_mask)
+    def rnd(v):
+        return v.to(dt).float()
+
+    b, t, h = x.shape
+    heads, dk, window = spec["n_heads"], spec["dk"], spec["window"]
+    k = spec["ffn_k"]
+    w = {name: spec[name].float() for name in _WEIGHTS}
+    mask = x_mask.float()
+    keys = mask[:, None, None, :, 0] > 0  # [B, 1, 1, T]
+    xf = x.float()
+
+    def layer_norm(v, gamma, beta):
+        return torch.nn.functional.layer_norm(v, (h,), gamma, beta, 1e-5)
+
+    def conv(v, weight, bias):  # weight [K, Cin, Cout], "same" taps
+        v = torch.nn.functional.pad(v, (0, 0, (k - 1) // 2, k // 2))
+        return nn.conv1d(v, weight.permute(2, 1, 0), bias)
+
+    for l in range(spec["n_layers"]):
+        qkv = xf @ w["w_qkv"][l] + w["b_qkv"][l]
+        q, kk, v = (qkv[..., i * h:(i + 1) * h].reshape(b, t, heads, dk)
+                    .transpose(1, 2) for i in range(3))
+        q = q * (1.0 / math.sqrt(dk))
+        rel_k, rel_v = (attention._get_relative_embeddings(
+            w[name][l][None], t, window) for name in ("rel_k", "rel_v"))
+        scores = q @ kk.transpose(-1, -2) + attention._relative_to_absolute(
+            q @ rel_k.transpose(-1, -2))
+        p = torch.softmax(scores.masked_fill(~keys, -1e4), dim=-1)
+        o = p @ v + attention._absolute_to_relative(p) @ rel_v
+        attn = rnd(o.transpose(1, 2).reshape(b, t, h))
+        ln = w["ln"][l]
+        xf = rnd(layer_norm(xf + attn @ w["w_o"][l] + w["b_o"][l],
+                            ln[0], ln[1]))
+        h1 = conv(xf * mask, w["w_ffn1"][l], w["b_ffn1"][l, 0])
+        h1 = rnd(torch.relu(h1) * mask)
+        y = conv(h1, w["w_ffn2"][l], w["b_ffn2"][l, 0]) * mask
+        xf = rnd(layer_norm(xf + y, ln[2], ln[3]))
+    return (xf * mask).to(dt)
+
+
+def plain(spec, x: torch.Tensor, x_mask: torch.Tensor) -> torch.Tensor:
+    """The function the kernel computes, in plain PyTorch ops (in bf16,
+    the JAX kernel's rounding points, :func:`_plain_rounded`)."""
+    if x.dtype != torch.float32:
+        return _plain_rounded(spec, x, x_mask)
+    return attention.encoder_plain(spec["plain"], x, x_mask)
 
 
 def apply(spec, x: torch.Tensor, x_mask: torch.Tensor) -> torch.Tensor:
@@ -138,7 +187,8 @@ def launch(spec, x: torch.Tensor, x_mask: torch.Tensor,
     each phase."""
     b, t, h = x.shape
     dev = x.device
-    cuda.require(x, "x", dev)
+    lib = cuda.library(LIBRARY, x.dtype)
+    cuda.require(x, "x", dev, x.dtype)
     n_layers, n_heads, dk = spec["n_layers"], spec["n_heads"], spec["dk"]
     window, ffn_k = spec["window"], spec["ffn_k"]
     f = spec["w_ffn1"].shape[-1]
@@ -151,26 +201,29 @@ def launch(spec, x: torch.Tensor, x_mask: torch.Tensor,
                          f"a window of {MAX_WINDOW}, not {h}, {dk} and "
                          f"{window}")
     for name in _WEIGHTS:
-        cuda.require(spec[name], name, dev)
-    smem = cuda.function(LIBRARY, "fused_encoder_smem_bytes",
+        cuda.require(spec[name], name, dev, x.dtype)
+    smem = cuda.function(lib, "fused_encoder_smem_bytes",
                          [cuda.c_int] * 3, ctypes.c_longlong)(t, dk, window)
     if smem > 227 * 1024:
         raise ValueError(f"text length {t} needs {smem} B of shared memory "
                          f"in the attention kernel; the card grants 227 KB")
     plan = tiling.encoder_plan(b, t, h, f, ffn_k, tiling.grid_size(
-        *cuda.occupancy(LIBRARY, "fused_encoder_occupancy", dev, t, dk,
+        *cuda.occupancy(lib, "fused_encoder_occupancy", dev, t, dk,
                         window)))
-    lengths = x_mask[:, :, 0].sum(dim=1).to(torch.int32).contiguous()
+    # summed in float32: a bf16 sum rounds lengths above 256
+    lengths = x_mask[:, :, 0].sum(dim=1, dtype=torch.float32).to(
+        torch.int32).contiguous()
     out = torch.empty_like(x)
     rows = b * t
     # xbuf, qkv, attn, part, hbuf: freed at return, reused only after the
-    # kernel (the allocator orders reuse on this stream)
+    # kernel (the allocator orders reuse on this stream); counted in 4-byte
+    # elements, which a bf16 xbuf, attn and hbuf fill half of
     _, bufs = cuda.scratch(dev, (rows * h, rows * 3 * h, rows * h,
                                  plan.parts * rows * h, rows * f))
     if stamps is not None:
         cuda.require(stamps, "stamps", dev, torch.int64,
                      (len(phases(spec)) + 1,))
-    fn = cuda.function(LIBRARY, "fused_encoder_forward",
+    fn = cuda.function(lib, "fused_encoder_forward",
                        [cuda.c_ptr] * 20 + [cuda.c_int] * 13
                        + [cuda.c_float, cuda.c_ptr])
     with torch.cuda.device(dev):
@@ -179,6 +232,6 @@ def launch(spec, x: torch.Tensor, x_mask: torch.Tensor,
                     *bufs, cuda.ptr(out), cuda.ptr(stamps),
                     b, t, h, f, n_layers, n_heads, window, ffn_k, *plan,
                     1.0 / math.sqrt(dk), cuda.stream_of(x))
-    cuda.check(LIBRARY, status, "fused_encoder_forward")
-    cuda.count_launch(__name__)
+    cuda.check(lib, status, "fused_encoder_forward")
+    cuda.count_launch(__name__, x.dtype)
     return out

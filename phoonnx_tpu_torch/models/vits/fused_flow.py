@@ -129,10 +129,23 @@ _WEIGHTS = ("w_pre", "b_pre", "w_in", "b_in", "w_rs", "b_rs", "w_post",
 
 def plain(spec, x: torch.Tensor, x_mask: torch.Tensor,
           g: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The function the kernel computes, in plain PyTorch ops."""
+    """The function the kernel computes, in plain PyTorch ops. In bf16
+    that is the JAX kernel's: float32 arithmetic on the bf16 values of the
+    input, the weights and ``g`` (the halves stay float32 across the
+    flows), the output rounded once."""
     from phoonnx_tpu_torch.models.vits.posterior import coupling_flow_plain
 
-    return coupling_flow_plain(spec["plain"], x, x_mask, g=g, reverse=True)
+    if x.dtype == torch.float32:
+        return coupling_flow_plain(spec["plain"], x, x_mask, g=g,
+                                   reverse=True)
+    # the weights the kernel reads: weight norm folded in their own type
+    weights = nn.cast_floating(nn.fold_weight_norm(spec["plain"]),
+                               torch.float32)
+    out = coupling_flow_plain(weights, x.float(),
+                              x_mask.float(),
+                              g=None if g is None else g.float(),
+                              reverse=True)
+    return out.to(x.dtype)
 
 
 def apply(spec, x: torch.Tensor, x_mask: torch.Tensor,
@@ -159,8 +172,9 @@ def _speaker_terms(spec, g, batch: int):
         # speaker-unconditioned audio on an hparams mismatch
         raise ValueError(
             "fused flow has speaker conditioning but no g was passed")
-    g_all = (torch.einsum("bg,fgh->bfh", g[:, 0, :], spec["cond_w"])
-             + spec["cond_b"])
+    # float32 whatever the weights' type (the JAX kernel's wrapper casts)
+    g_all = (torch.einsum("bg,fgh->bfh", g[:, 0, :].float(),
+                          spec["cond_w"].float()) + spec["cond_b"].float())
     return g_all.reshape(batch, spec["n_flows"], spec["n_layers"],
                          2 * spec["hidden"]).contiguous()
 
@@ -183,25 +197,32 @@ def launch(spec, x: torch.Tensor, x_mask: torch.Tensor,
     b, t, c = x.shape
     dev = x.device
     half, hidden = spec["half"], spec["hidden"]
-    cuda.require(x, "x", dev)
+    lib = cuda.library(LIBRARY, x.dtype)
+    cuda.require(x, "x", dev, x.dtype)
     if c != 2 * half:
         raise ValueError(f"x has {c} channels, the spec {2 * half}")
     for name in _WEIGHTS:
-        cuda.require(spec[name], name, dev)
+        cuda.require(spec[name], name, dev, x.dtype)
     g_all = _speaker_terms(spec, g, b)
     if g_all is not None:
         cuda.require(g_all, "g", dev)
     grid = tiling.grid_size(
-        *cuda.occupancy(LIBRARY, "fused_flow_occupancy", dev))
-    lengths = x_mask[:, :, 0].sum(dim=1).to(torch.int32).contiguous()
+        *cuda.occupancy(lib, "fused_flow_occupancy", dev))
+    # summed in float32: a bf16 sum rounds lengths above 256
+    lengths = x_mask[:, :, 0].sum(dim=1, dtype=torch.float32).to(
+        torch.int32).contiguous()
     out = torch.empty_like(x)
-    # hbuf, acts, skip: freed at return, reused only after the kernel
-    _, bufs = cuda.scratch(dev, (b * t * hidden,) * 3)
+    # xs (the float32 halves of a bf16 call), hbuf, acts, skip: freed at
+    # return, reused only after the kernel
+    halves = 0 if x.dtype == torch.float32 else b * t * c
+    _, bufs = cuda.scratch(dev, (halves,) + (b * t * hidden,) * 3)
+    if not halves:
+        bufs[0] = None
     if stamps is not None:
         cuda.require(stamps, "stamps", dev, torch.int64,
                      (len(phases(spec)) + 1,))
-    fn = cuda.function(LIBRARY, "fused_flow_reverse",
-                       [cuda.c_ptr] * 16 + [cuda.c_int] * 9 + [cuda.c_ptr])
+    fn = cuda.function(lib, "fused_flow_reverse",
+                       [cuda.c_ptr] * 17 + [cuda.c_int] * 9 + [cuda.c_ptr])
     with torch.cuda.device(dev):
         status = fn(cuda.ptr(x), cuda.ptr(out), cuda.ptr(lengths),
                     cuda.ptr(g_all), *[cuda.ptr(spec[n]) for n in _WEIGHTS],
@@ -209,6 +230,6 @@ def launch(spec, x: torch.Tensor, x_mask: torch.Tensor,
                     spec["kernel_size"], spec["dilation_rate"],
                     spec["n_layers"], spec["n_flows"], grid,
                     cuda.stream_of(x))
-    cuda.check(LIBRARY, status, "fused_flow_reverse")
-    cuda.count_launch(__name__)
+    cuda.check(lib, status, "fused_flow_reverse")
+    cuda.count_launch(__name__, x.dtype)
     return out

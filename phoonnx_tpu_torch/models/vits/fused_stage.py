@@ -98,8 +98,55 @@ def _program(branches):
     return rows
 
 
+def slope_in(value: float, dtype: torch.dtype) -> float:
+    """A leaky-ReLU slope as the kernel multiplies by it: in bf16 the JAX
+    kernel's ``slope * v`` is a bf16 product, its slope rounded to bf16."""
+    return float(torch.tensor(value, dtype=dtype))
+
+
+def _plain_rounded(spec, x: torch.Tensor, valid: torch.Tensor):
+    """The JAX kernel's function on bf16 storage: every product and sum in
+    float32 on bf16 values, rounded to bf16 where the kernel stores in
+    ``x.dtype``: each activation, each conv output that is not the end of
+    a unit, each residual sum, the branch sum and mean, and the audio."""
+    dt = x.dtype
+
+    def rnd(v):
+        return v.to(dt).float()
+
+    mask = nn.sequence_mask(valid, x.shape[1])[..., None].float()
+    w, bias = spec["W"].float(), spec["b"].float()
+    slope = slope_in(spec["slope"], dt)
+    stage_in = x.float()
+    acc = None
+    for branch in spec["branches"]:
+        cur = stage_in
+        for unit in branch:
+            src = cur
+            for ci, (w0, taps, dil, pad, b_idx) in enumerate(unit):
+                act = rnd(torch.maximum(src, slope * src)) * mask
+                y = nn.conv1d(act, w[w0:w0 + taps].permute(2, 1, 0),
+                              bias[b_idx], padding=pad, dilation=dil)
+                if ci + 1 == len(unit):
+                    cur = rnd(cur + rnd(y))
+                else:
+                    src = rnd(y)
+        acc = cur if acc is None else rnd(acc + cur)
+    out = rnd(acc / len(spec["branches"])) * mask
+    if "postW" not in spec:
+        return out.to(dt)
+    post_slope = slope_in(spec["post_slope"], dt)
+    act = rnd(torch.maximum(out, post_slope * out))
+    y = nn.conv1d(act, spec["post_weight"].float(), spec["postB"].float(),
+                  padding=spec["post_pad"])
+    return torch.tanh(y).to(dt)
+
+
 def plain(spec, x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-    """The function the kernel computes, in plain PyTorch ops."""
+    """The function the kernel computes, in plain PyTorch ops (in bf16,
+    the JAX kernel's rounding points, :func:`_plain_rounded`)."""
+    if x.dtype != torch.float32:
+        return _plain_rounded(spec, x, valid)
     t = x.shape[1]
     mask = nn.sequence_mask(valid, t)[..., None].to(x.dtype)
 
@@ -147,9 +194,10 @@ def launch(spec, x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     T (``apply_group`` clamps it)."""
     b, t, c = x.shape
     dev = x.device
-    cuda.require(x, "x", dev)
+    lib = cuda.library(LIBRARY, x.dtype)
+    cuda.require(x, "x", dev, x.dtype)
     for name in ("W", "b"):
-        cuda.require(spec[name], name, dev)
+        cuda.require(spec[name], name, dev, x.dtype)
     if spec["W"].shape[1:] != (c, c):
         raise ValueError(f"x has {c} channels, the spec {spec['W'].shape[1]}")
     for _, taps, dil, *_ in spec["program"]:
@@ -163,12 +211,13 @@ def launch(spec, x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     tmp = torch.empty_like(x) if multi_conv else None
     acc = torch.empty_like(x)
     has_post = "postW" in spec
-    audio = torch.empty(b, t, 1, device=dev) if has_post else None
+    audio = torch.empty(b, t, 1, device=dev, dtype=x.dtype) \
+        if has_post else None
     if has_post:
-        cuda.require(spec["postW"], "postW", dev, shape=(
+        cuda.require(spec["postW"], "postW", dev, x.dtype, shape=(
             spec["postW"].shape[0], c, 1))
-        cuda.require(spec["postB"], "postB", dev, shape=(1,))
-    fn = cuda.function(LIBRARY, "fused_stage_group",
+        cuda.require(spec["postB"], "postB", dev, x.dtype, shape=(1,))
+    fn = cuda.function(lib, "fused_stage_group",
                        [cuda.c_ptr] * 5 + [cuda.c_int] * 2 + [cuda.c_ptr] * 6
                        + [cuda.c_int] * 2 + [cuda.c_float, cuda.c_ptr]
                        + [cuda.c_int] * 3 + [cuda.c_float, cuda.c_ptr])
@@ -182,8 +231,10 @@ def launch(spec, x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
                     cuda.ptr(spec.get("postW") if has_post else None),
                     cuda.ptr(spec.get("postB") if has_post else None),
                     spec["postW"].shape[0] if has_post else 0,
-                    spec.get("post_pad", 0), spec.get("post_slope", 0.0),
-                    cuda.ptr(audio), b, t, c, spec["slope"], cuda.stream_of(x))
-    cuda.check(LIBRARY, status, "fused_stage_group")
-    cuda.count_launch(__name__)
+                    spec.get("post_pad", 0),
+                    slope_in(spec.get("post_slope", 0.0), x.dtype),
+                    cuda.ptr(audio), b, t, c, slope_in(spec["slope"], x.dtype),
+                    cuda.stream_of(x))
+    cuda.check(lib, status, "fused_stage_group")
+    cuda.count_launch(__name__, x.dtype)
     return audio if has_post else acc

@@ -11,7 +11,8 @@ parameter tree (plain dicts of CPU tensors) used by
 Layout notes: conv kernels keep the torch layouts ([O, I/g, K] for Conv1d,
 [I, O, K] for ConvTranspose1d) — see models/vits/nn.py — so values are
 copied verbatim. Only ElementwiseAffine ([C, 1] -> [C]) is squeezed.
-Floating values are stored as float32, the only type the port computes in.
+Floating values are stored as float32; a bfloat16 engine casts them
+(``VitsEngine(dtype="bfloat16")``, ``nn.cast_floating``).
 """
 
 import re

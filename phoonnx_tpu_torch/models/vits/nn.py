@@ -115,6 +115,34 @@ def dropout(x: Tensor, rate: float, generator: Optional[torch.Generator],
                                                    device=x.device))
 
 
+def fold_weight_norm(tree):
+    """Copy of a parameter tree with every weight-normalised conv's
+    ``weight_v``/``weight_g`` replaced by its ``weight``
+    (:func:`resolve_weight`, in the tree's dtype)."""
+    if isinstance(tree, dict):
+        out = {k: fold_weight_norm(v) for k, v in tree.items()
+               if k not in ("weight_v", "weight_g")}
+        if "weight_v" in tree and "weight" not in tree:
+            out["weight"] = resolve_weight(tree)
+        return out
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(fold_weight_norm(v) for v in tree)
+    return tree
+
+
+def cast_floating(tree, dtype: torch.dtype):
+    """Copy of a parameter tree with every floating tensor cast to
+    ``dtype`` (other tensors and leaves kept), as the JAX engine's
+    ``cast_floating``."""
+    if isinstance(tree, dict):
+        return {k: cast_floating(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(cast_floating(v, dtype) for v in tree)
+    if isinstance(tree, torch.Tensor) and tree.is_floating_point():
+        return tree.to(dtype)
+    return tree
+
+
 # ---------------------------------------------------------------------------
 # Masks and paths
 # ---------------------------------------------------------------------------

@@ -38,8 +38,9 @@ Where this differs from ``phoonnx_tpu/serve.py``, and why:
   captures a CUDA graph (``infer/graphs.py``). There are no XLA compiles.
 * **The CLI flags.** ``--no-compile-cache`` is gone (no XLA programs;
   graphs are captured per process, the nvcc builds persist in
-  ``build/``); ``--bf16`` and ``--precision`` other than ``default``
-  raise the engine's float32-only error; ``--device`` (default ``cuda``)
+  ``build/``); ``--bf16`` serves in bfloat16, as the JAX server does;
+  ``--precision`` other than ``default`` raises the engine's error;
+  ``--device`` (default ``cuda``)
   is added, as in the port's other CLIs, and ``--device cpu`` serves the
   plain PyTorch path.
 * **The listen backlog** is 1024 connections, not socketserver's 5:
@@ -805,10 +806,11 @@ def _parser():
     ap.add_argument("--max-wait-ms", type=float, default=10.0)
     ap.add_argument("--precision", default=None,
                     choices=["default", "high", "highest"],
-                    help="matmul precision; only 'default' (float32 at "
+                    help="matmul precision; only 'default' (products at "
                          "full precision) is ported")
     ap.add_argument("--bf16", action="store_true",
-                    help="serve in bfloat16 (not ported yet: raises)")
+                    help="serve in bfloat16 (every floating weight cast, "
+                         "the kernels' bf16 builds)")
     ap.add_argument("--warmup", action="store_true",
                     help="capture the common bucket grid's graphs at "
                          "every lane count before accepting traffic")

@@ -7,8 +7,9 @@ click. Usage:
     echo "Hello." | python -m phoonnx_tpu_torch.synthesize -m voice.onnx \\
         -o out.wav
 
-``--bf16`` and a ``--precision`` other than ``default`` raise the
-engine's error (float32 only so far, ROADMAP.md port queue 'bf16'). The
+``--bf16`` runs the voice in bfloat16, as the JAX CLI does; a
+``--precision`` other than ``default`` raises the engine's error
+(ROADMAP.md port queue 'bf16'). The
 JAX CLI's ``--compile-cache`` has no counterpart: the port compiles no
 XLA programs (``observability.py``).
 """
@@ -42,12 +43,12 @@ def _parser() -> argparse.ArgumentParser:
     parser.add_argument("--no-normalize", action="store_true")
     parser.add_argument("--volume", default=1.0, type=float)
     parser.add_argument("--bf16", action="store_true",
-                        help="Run the model in bfloat16 (not ported yet: "
-                        "raises)")
+                        help="Run the model in bfloat16 (every floating "
+                        "weight cast, the kernels' bf16 builds)")
     parser.add_argument("--precision", default=None,
                         choices=["default", "high", "highest"],
-                        help="Matmul precision; only 'default' (float32 at "
-                        "full precision) is ported")
+                        help="Matmul precision; only 'default' (products "
+                        "at full precision) is ported")
     parser.add_argument("--stream", action="store_true",
                         help="Write WAV frames incrementally as the vocoder "
                         "produces them (sub-sentence chunked decode; "

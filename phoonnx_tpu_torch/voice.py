@@ -154,8 +154,10 @@ class TTSVoice:
         front-end settings. Weights import by name into the parameter tree.
 
         device: None means the GPU, and raises RuntimeError when there is
-        none; ``"cpu"`` runs the plain PyTorch path. ``dtype`` and
-        ``matmul_precision`` other than float32 at full precision raise
+        none; ``"cpu"`` runs the plain PyTorch path. ``dtype``:
+        ``"float32"`` or ``"bfloat16"`` (every floating weight cast, the
+        kernels' bf16 builds, as the JAX package serves); a
+        ``matmul_precision`` other than the default raises
         (:class:`VitsEngine`).
         """
         from phoonnx_tpu_torch.infer.engine import VitsEngine, resolve_device

@@ -741,16 +741,17 @@ def test_kernels_at_sixteen_lanes(device, params):
     assert max(errs.values()) < TOL
 
 
-def _served_voice(tmp_path, seed, device=None):
+def _served_voice(tmp_path, seed, device=None, dtype="float32"):
     """A medium voice (two encoder layers) written as ``chip_smoke.py``
-    writes its voices and loaded on ``device``; RAW phonemes a-z."""
+    writes its voices and loaded on ``device`` in ``dtype``; RAW phonemes
+    a-z."""
     import chip_smoke
     from phoonnx_tpu_torch import TTSVoice
 
     hp = model.VitsHParams.preset("medium", n_layers=2)
     p = model.random_params(hp, torch.Generator().manual_seed(seed))
     path, _ = chip_smoke.write_voice(torch, p, hp, tmp_path)
-    return TTSVoice.load(str(path), device=device)
+    return TTSVoice.load(str(path), device=device, dtype=dtype)
 
 
 def test_server_answers_concurrent_requests(device, tmp_path):
@@ -841,5 +842,133 @@ def test_replica_serves_on_the_second_card(device, tmp_path):
         for s in streams:  # round-robin: one stream a card
             assert s.shape == pcm.shape
             assert np.abs(s.astype(np.int32) - pcm).max() <= 1
+    finally:
+        srv.stop()
+
+
+# ---------------------------------------------------------------------------
+# bf16: the kernels' bf16 builds (the engine's dtype="bfloat16")
+# ---------------------------------------------------------------------------
+
+# a bf16 kernel against its bf16 plain version: max-abs <= BF16_TOL x
+# max(1, max|plain|) (chip_smoke.BF16_KERNEL_TOL): both round to bf16 at the
+# TPU kernel's points and sum in float32 in other orders
+BF16_TOL = 1e-2
+
+
+@pytest.fixture(scope="module")
+def params_bf16(device):
+    """``params``' weights in bf16, as a bf16 engine holds them."""
+    from phoonnx_tpu_torch.models.vits import nn
+
+    hp = model.VitsHParams.preset("medium", n_layers=2)
+    p = model.random_params(hp, torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    for flow in p["flow"]["flows"]:
+        for key in ("weight", "bias"):
+            flow["post"][key] = 0.05 * torch.randn(flow["post"][key].shape,
+                                                   generator=gen)
+    return model.attach_fused_specs(nn.cast_floating(
+        model.params_to_device(p, device), torch.bfloat16))
+
+
+def _hold_bf16(got, want):
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype == torch.bfloat16
+    assert got.shape == want.shape
+    assert bool(torch.isfinite(got).all())
+    scale = max(1.0, want.float().abs().max().item())
+    assert (got.float() - want.float()).abs().max().item() <= BF16_TOL * scale
+
+
+# the f32 tests' edges: T 1 and 5 (at the window), 37, a ragged 1024, the
+# longest text (3333)
+@pytest.mark.parametrize("lengths", [[1], [5], [37], [1024, 700], [3333]])
+def test_encoder_kernel_bf16(device, params_bf16, lengths):
+    """Kernel A's bf16 build: one launch counted under its own name,
+    against its bf16 plain version, padded rows 0, repeats bit-identical."""
+    spec = params_bf16["enc_p"]["encoder"]["fused"]
+    t = max(lengths)
+    mask = _mask(lengths, t, device).to(torch.bfloat16)
+    gen = torch.Generator(device=device).manual_seed(t)
+    x = (torch.randn(len(lengths), t, 192, device=device, generator=gen)
+         * mask).to(torch.bfloat16)
+    before = (fused_encoder.launches, fused_encoder.launches_bf16)
+    got = fused_encoder.apply(spec, x, mask)
+    assert (fused_encoder.launches, fused_encoder.launches_bf16) == (
+        before[0], before[1] + 1)
+    again = fused_encoder.apply(spec, x, mask)
+    _hold_bf16(got, fused_encoder.plain(spec, x, mask))
+    assert torch.equal(got, again)
+    for i, n in enumerate(lengths):
+        assert (got[i, n:] == 0).all()
+
+
+@pytest.mark.parametrize("lengths,gin", [([509, 300, 77, 6], 0), ([1], 0),
+                                         ([37, 20, 37, 5], 256)])
+def test_flow_kernel_bf16(device, params_bf16, flow_g, lengths, gin):
+    """Kernel B's bf16 build, ragged, without and with the speaker term
+    (gin 256, computed in float32 as the TPU kernel's wrapper does)."""
+    from phoonnx_tpu_torch.models.vits import nn
+
+    spec = params_bf16["flow"]["fused_rev"]
+    if gin:
+        spec = fused_flow.build_spec(nn.cast_floating(flow_g["plain"],
+                                                      torch.bfloat16))
+    t = max(lengths)
+    mask = _mask(lengths, t, device).to(torch.bfloat16)
+    gen = torch.Generator(device=device).manual_seed(t + gin)
+    x = (torch.randn(len(lengths), t, 192, device=device, generator=gen)
+         * mask).to(torch.bfloat16)
+    g = (torch.randn(len(lengths), 1, gin, device=device, generator=gen)
+         .to(torch.bfloat16) if gin else None)
+    before = fused_flow.launches_bf16
+    got = fused_flow.apply(spec, x, mask, g=g)
+    assert fused_flow.launches_bf16 == before + 1
+    _hold_bf16(got, fused_flow.plain(spec, x, mask, g=g))
+
+
+@pytest.mark.parametrize("stage", [0, 1, 2])
+def test_stage_kernel_bf16(device, params_bf16, stage):
+    """Kernel C's bf16 build at medium's stages (the last with the
+    generator's tail), ragged valid lengths."""
+    spec = params_bf16["dec"]["fused_stages"][stage]
+    c = 128 // (2 ** stage)
+    x = (torch.randn(2, 300, c, device=device) * 0.5).to(torch.bfloat16)
+    valid = torch.tensor([300, 171], dtype=torch.int32, device=device)
+    before = fused_stage.launches_bf16
+    got = fused_stage.apply_group(spec, x, valid=valid)
+    assert fused_stage.launches_bf16 == before + 1
+    _hold_bf16(got, fused_stage.plain(spec, x, valid))
+    assert ("postW" in spec) == (got.shape[-1] == 1)
+    if "postW" not in spec:
+        assert (got[1, 171:] == 0).all()
+
+
+def test_bf16_programs_replay_equal_eager(tmp_path, device):
+    """A bf16 voice's programs, each graph replayed against the program
+    called eagerly, ``torch.equal`` (``chip_smoke.graphs_vs_eager``)."""
+    import chip_smoke
+
+    voice = _served_voice(tmp_path, 11, dtype="bfloat16")
+    assert voice.engine.dtype == torch.bfloat16
+    ids = voice.phonemes_to_ids(voice.phonemize(
+        chip_smoke.text_of(100, 3))[0])
+    assert chip_smoke.graphs_vs_eager(torch, voice.engine, ids, 5,
+                                      tag="card bf16") == 0.0
+
+
+def test_bf16_server_answers_requests(device, tmp_path):
+    """A bf16 voice behind the server, through ``chip_smoke.served_held``
+    (served WAVs against the engine's own requests, the seeded request,
+    the stream route)."""
+    import chip_smoke
+    from phoonnx_tpu_torch.serve import TTSServer
+
+    voice = _served_voice(tmp_path, 12, dtype="bfloat16")
+    srv = TTSServer(voice, port=0, max_batch=16, max_wait_ms=50.0)
+    srv.start()
+    try:
+        chip_smoke.served_held(torch, srv, voice, 12, "card bf16")
     finally:
         srv.stop()

@@ -322,8 +322,12 @@ def test_normal_rows_prefix_at_any_width():
 def test_engine_options_refused_and_flags(models):
     _, _, eng = models
     params, hp = eng.params, eng.hp
-    with pytest.raises(ValueError, match="bf16"):
-        VitsEngine(params, hp, dtype="bfloat16", device="cpu")
+    # bfloat16 is an engine dtype (tests/test_torch_bf16.py holds it);
+    # another dtype raises
+    assert VitsEngine(params, hp, dtype="bfloat16",
+                      device="cpu").dtype == torch.bfloat16
+    with pytest.raises(ValueError, match="dtype"):
+        VitsEngine(params, hp, dtype="float16", device="cpu")
     with pytest.raises(ValueError, match="bf16"):
         VitsEngine(params, hp, matmul_precision="highest", device="cpu")
     with pytest.raises(ValueError, match="mode"):

@@ -605,10 +605,14 @@ def test_device_memory_stats_shape():
 # -- the CLI ----------------------------------------------------------------
 
 def test_cli_refuses_bf16(voice_path):
+    """``--bf16`` serves (tests/test_torch_cli.py::test_serve_cli_bf16);
+    what is still refused is a matmul precision other than the default,
+    with or without it."""
     from phoonnx_tpu_torch.serve import main
 
     with pytest.raises(ValueError, match="float32"):
-        main(["--model", str(voice_path), "--device", "cpu", "--bf16"])
+        main(["--model", str(voice_path), "--device", "cpu", "--bf16",
+              "--precision", "high"])
     with pytest.raises(ValueError, match="float32"):
         main(["--model", str(voice_path), "--device", "cpu",
               "--precision", "highest"])

@@ -16,6 +16,7 @@ import wave
 import numpy as np
 import jax
 import pytest
+import torch
 
 from phoonnx_tpu.models.vits.load import params_to_flat
 from phoonnx_tpu.models.vits.model import random_params
@@ -178,5 +179,10 @@ def test_foreign_weights_raise_naming_the_roadmap(tmp_path, voice_files):
 
 
 def test_other_dtypes_are_refused(voice_files):
+    """float32 and bfloat16 load (tests/test_torch_bf16.py holds bf16);
+    another dtype is refused, naming the two."""
+    voice = TTSVoice.load(*map(str, voice_files), dtype="bfloat16",
+                          device="cpu")
+    assert voice.engine.dtype == torch.bfloat16
     with pytest.raises(ValueError, match="float32"):
-        TTSVoice.load(*map(str, voice_files), dtype="bfloat16", device="cpu")
+        TTSVoice.load(*map(str, voice_files), dtype="float16", device="cpu")
