@@ -97,8 +97,26 @@ another sm_90a card) and the CUDA toolkit. The script
    speaker 2); and the two CLIs,
    ``python -m phoonnx_tpu_torch.synthesize`` (whole and ``--stream``)
    and ``python -m phoonnx_tpu_torch.convert``, as three processes
-   started together (``cli:`` lines); ``memory:`` lines give the
-   allocator's reserved and allocated memory after each phase;
+   started together (``cli:`` lines); foreign voices (``onnx:`` lines):
+   the medium weights exported as an ONNX graph by the port's
+   ``onnx/vits_graph.py`` with every initializer renamed, in float32 and
+   int8 QDQ, loaded by ``TTSVoice.load`` onto the ONNX graph engine
+   (``OnnxFallbackEngine``, its ``TorchGraphRunner`` on the card): each
+   node's output place (no floating or data-sized value on the host; the
+   host nodes and host reads by op), two seeded calls equal, the card's
+   58-id waveform against the port's numpy interpreter on the host within
+   1e-3 of the peak (the durations' distance to an integer printed if the
+   lengths differ), the 58- and 241-id requests of both and of the native
+   voice of the same weights timed in turns with their device kernels,
+   busy time and idle share, seeded requests through ``TTSServer`` within
+   one int16 step of the engine, and no launch of A-D in the phase; then
+   the engines' matmul precision (``precision:`` lines): a default
+   engine bit for bit the same before, beside and after a ``"high"``
+   engine of the same voice capturing and replaying on another thread,
+   ``"highest"`` equal to the default, both TF32 flags off after, and
+   ``"high"`` against the default with both request times; ``memory:``
+   lines give the allocator's reserved and allocated memory after each
+   phase;
 4. training: writes a synthetic LJSpeech-style dataset (45 utterances of
    per-phoneme tones, 1.5 to 8 s, spectrograms from the port's STFT; 5
    held out for tests, 4 validation, 36 train) and runs
@@ -735,6 +753,41 @@ def write_voice(torch, params, hp, out_dir: Path, name: str = "medium"):
     return model_path, config_path
 
 
+def write_foreign_voice(torch, params, hp, out_dir: Path,
+                        name: str = "foreign", quantize: bool = False):
+    """A voice in no layout the weight importer knows: the port's
+    executable VITS graph (``onnx/vits_graph.py``, int8 QDQ weights with
+    ``quantize``) with every initializer renamed ``foreign/...``, as a
+    coqui-VITS or mimic3 export would name them; the config as
+    :func:`write_voice`'s. ``TTSVoice.load`` runs it on the ONNX graph
+    engine."""
+    from phoonnx_tpu_torch.models.vits.load import params_to_flat
+    from phoonnx_tpu_torch.onnx.reader import read_onnx
+    from phoonnx_tpu_torch.onnx.vits_graph import export_vits_onnx
+    from phoonnx_tpu_torch.onnx.writer import write_onnx
+
+    model_path, config_path = write_voice(torch, params, hp, out_dir, name)
+    export_vits_onnx(params_to_flat(params), hp, str(model_path),
+                     metadata={"model_type": "vits",
+                               "sample_rate": str(hp.sample_rate)},
+                     quantize=quantize)
+    model = read_onnx(str(model_path))
+    rename = {k: f"foreign/{k}" for k in model.initializers}
+    io_names = set(model.inputs) | set(model.outputs)
+
+    def remap(n):
+        return n if n in io_names else rename.get(n, n)
+
+    nodes = [(n.op_type, [remap(i) for i in n.inputs],
+              [remap(o) for o in n.outputs], n.attributes)
+             for n in model.nodes]
+    write_onnx(str(model_path),
+               {rename[k]: v for k, v in model.initializers.items()},
+               metadata=dict(model.metadata), inputs=model.inputs,
+               outputs=model.outputs, nodes=nodes, opset=model.opset)
+    return model_path, config_path
+
+
 def text_of(n_letters: int, offset: int) -> str:
     """A RAW-phoneme 'sentence': letters in words of 5, no punctuation."""
     letters = "abcdefghijklmnopqrstuvwxyz"
@@ -1290,6 +1343,310 @@ def device_profile(torch, fn, label, top=20):
         print(f"profile: {dev_us / 1e3:9.4f} ms  x{count:<5d} {key[:110]}",
               flush=True)
     return wall_us, busy_us, rows
+
+
+# ---------------------------------------------------------------------------
+# foreign voices: the ONNX graph engine on the card
+# ---------------------------------------------------------------------------
+
+# the card's seeded waveform against the port's numpy interpreter on the
+# host, as a share of the peak: the port's end-to-end bound
+# (ARCHITECTURE.md:86-89)
+ONNX_TOL = 1e-3
+ONNX_RUNS = 11
+ONNX_IDS = (58, 241)
+
+
+def all_kernels():
+    """A, B and C (float32 builds) and D, by name: their ``LAUNCHES``
+    keys."""
+    kernels = serving_kernels()
+    kernels["D"] = "phoonnx_tpu_torch.ops.mas"
+    return kernels
+
+
+def ids_of(voice, n_ids: int, offset: int):
+    """Exactly ``n_ids`` phoneme ids of a RAW text."""
+    ids = voice.phonemes_to_ids(voice.phonemize(text_of_ids(n_ids + 8,
+                                                            offset))[0])
+    check(len(ids) >= n_ids, f"a text of {len(ids)} ids, {n_ids} wanted")
+    return ids[:n_ids - 1] + ids[-1:]
+
+
+def onnx_feeds(ids):
+    """The fallback engine's feeds of a request at the default scales: ids
+    padded to its bucket."""
+    from phoonnx_tpu_torch.infer.onnx_engine import _bucket_len
+
+    n = len(ids)
+    return {"input": np.asarray([ids + [0] * (_bucket_len(n) - n)],
+                                np.int64),
+            "input_lengths": np.asarray([n], np.int64),
+            "scales": np.asarray((0.667, 1.0, 0.8), np.float32)}
+
+
+def duration_distance(engine, feeds, seed, tag):
+    """Print, for each ``Ceil`` of the graph (durations to frames), the
+    distance of its input to the nearest integer on the card and on the
+    host, and where the two ceilings differ."""
+    for node in engine.runner.model.nodes:
+        if node.op_type != "Ceil":
+            continue
+        vals = []
+        for run in (engine.runner.run, engine.executor.run):
+            engine._reseed(seed)
+            vals.append(np.asarray(run(feeds, outputs=[node.inputs[0]])[0],
+                                   np.float64).reshape(-1))
+        card, host = vals
+        dist = np.abs(card - np.round(card))
+        print(f"{tag}: Ceil {node.name}: {len(card)} values, nearest "
+              f"integer distance min {dist.min():.3e} on the card; ceilings "
+              f"differ at {np.flatnonzero(np.ceil(card) != np.ceil(host))}",
+              flush=True)
+
+
+def first_difference(engine, feeds, seed):
+    """The first node whose output differs between two seeded runs on the
+    card, as (op type, node name)."""
+    names = [o for n in engine.runner.model.nodes for o in n.outputs if o]
+    runs = []
+    for _ in range(2):
+        engine._reseed(seed)
+        runs.append(engine.runner.run(feeds, outputs=names))
+    owner = {o: n for n in engine.runner.model.nodes for o in n.outputs}
+    for name, a, b in zip(names, *runs):
+        if not np.array_equal(a, b, equal_nan=True):
+            return owner[name].op_type, owner[name].name
+    return None
+
+
+def onnx_voice_check(torch, voice, kind, seed, tag):
+    """One foreign voice on the card: the graph engine with its runner on
+    CUDA; each node's output place (no floating or data-sized value on
+    the host); two seeded calls equal; the card's 58-id waveform against
+    the host interpreter on the same feeds and seed."""
+    from phoonnx_tpu_torch.infer.onnx_engine import OnnxFallbackEngine
+
+    engine = voice.engine
+    check(isinstance(engine, OnnxFallbackEngine)
+          and engine.runner.device.type == "cuda",
+          f"{tag}: the {kind} foreign voice loaded to "
+          f"{type(engine).__name__} on "
+          f"{getattr(getattr(engine, 'runner', None), 'device', None)}")
+    ids = ids_of(voice, ONNX_IDS[0], 5)
+    feeds = onnx_feeds(ids)
+    a = engine.synthesize_ids(ids, seed=seed)
+    stats = engine.runner.last_run
+    ids_numel = feeds["input"].size
+    bad = [h for h in stats.host_outputs
+           if np.dtype(h[2]).kind not in "biu" or h[3] > ids_numel]
+    print(f"{tag}: {kind}: {stats.nodes} nodes, outputs by place "
+          f"{dict(stats.outputs)}, host nodes by op {dict(stats.host_nodes)}"
+          f", host reads of device values by op {dict(stats.reads)}, "
+          f"host-to-device copies {stats.uploads} (the noise draws and "
+          "small integer inputs)", flush=True)
+    check(not bad, f"{tag}: {kind}: floating or data-sized values on the "
+          f"host: {bad[:5]}")
+    b = engine.synthesize_ids(ids, seed=seed)
+    if not np.array_equal(a, b):
+        fail(f"{tag}: {kind}: two seeded calls on the card differ, first "
+             f"at {first_difference(engine, feeds, seed)}")
+    engine._reseed(seed)
+    t0 = time.perf_counter()
+    want = np.asarray(engine.executor.run(feeds)[0], np.float32).reshape(-1)
+    host_s = time.perf_counter() - t0
+    if a.shape != want.shape:
+        duration_distance(engine, feeds, seed, tag)
+        fail(f"{tag}: {kind}: the card gave {a.shape} samples, the host "
+             f"interpreter {want.shape}")
+    peak = float(np.abs(want).max())
+    err = float(np.abs(a - want).max())
+    print(f"{tag}: {kind}: card vs host interpreter, {len(ids)} ids, seed "
+          f"{seed}: {len(a)} samples each, max_abs {err:.3e} of peak "
+          f"{peak:.4f} ({err / peak:.3e}, bound {ONNX_TOL:g}); host "
+          f"interpreter {host_s:.2f} s", flush=True)
+    check(np.isfinite(a).all() and err <= ONNX_TOL * peak,
+          f"{tag}: {kind}: card vs host {err:.3e} of peak {peak:.4f}")
+    return a
+
+
+def onnx_timings(torch, voices, native, seed, tag):
+    """The 58- and 241-id requests of each foreign voice and of the
+    native voice of the same weights, ONNX_RUNS in turns (host clock
+    around a call that returns audio on the host), with each one's device
+    kernels, busy time and idle share from one profiled request."""
+    for n_ids in ONNX_IDS:
+        ids = ids_of(native, n_ids, 7)
+        engines = dict(voices, native=native)
+        times = {k: [] for k in engines}
+        for v in engines.values():  # the native engine captures its graphs
+            v.engine.synthesize_ids(ids, seed=seed)
+        for _ in range(ONNX_RUNS):
+            for k, v in engines.items():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                v.engine.synthesize_ids(ids, seed=seed)
+                times[k].append((time.perf_counter() - t0) * 1e3)
+        for k, v in engines.items():
+            q = quartiles(times[k])
+            wall_us, busy_us, rows = device_profile(
+                torch, partial(v.engine.synthesize_ids, ids, seed=seed),
+                f"{tag} {k}: one request of {len(ids)} ids", top=0)
+            extra = ""
+            if k != "native":
+                st = v.engine.runner.last_run
+                extra = (f", {st.nodes} nodes, "
+                         f"{sum(st.reads.values())} host reads")
+            print(f"{tag}: {k} {len(ids)} ids: request ms median "
+                  f"{q[1]:.3f} (quartiles {q[0]:.3f}-{q[2]:.3f}, "
+                  f"{ONNX_RUNS} runs in turns), "
+                  f"{sum(r[1] for r in rows)} device kernels, device busy "
+                  f"{busy_us / 1e3:.3f} ms of {wall_us / 1e3:.3f}, idle share "
+                  f"{1 - busy_us / wall_us:.3f}{extra}", flush=True)
+
+
+def onnx_served(torch, voice, seed, tag):
+    """A few seeded requests through TTSServer over the foreign voice,
+    each held to the engine's own call within one int16 step."""
+    from phoonnx_tpu_torch.serve import TTSServer
+
+    srv = TTSServer(voice, port=0, max_batch=16, max_wait_ms=5.0)
+    srv.start()
+    try:
+        for i, n_ids in enumerate((20, 58, 120)):
+            text = text_of_ids(n_ids, 11 + i)
+            ids = voice.phonemes_to_ids(voice.phonemize(text)[0])
+            got, ms = serve_post(srv, {"text": text, "seed": seed + i})
+            want = pcm16(voice.engine.synthesize_ids(ids, seed=seed + i))
+            steps = (lsb(got, want) if got.shape == want.shape
+                     else None)
+            print(f"{tag}: served {len(ids)} ids in {ms:.1f} ms, "
+                  f"{len(got)} samples, {steps} int16 steps from the "
+                  "engine", flush=True)
+            check(steps is not None and steps <= STREAM_LSB,
+                  f"{tag}: served request of {len(ids)} ids: "
+                  f"{got.shape} vs {want.shape}, {steps} steps")
+    finally:
+        srv.stop()
+
+
+def onnx_phase(torch, params, hp, native_files, seed, root: Path,
+               tag="onnx"):
+    """Foreign voices (the medium weights in the port's exported graph,
+    every initializer renamed; float32 and int8 QDQ) through
+    ``TTSVoice.load`` on the default device: the ONNX graph engine on the
+    card, none of kernels A-D launched."""
+    from phoonnx_tpu_torch import TTSVoice
+
+    t_start = time.perf_counter()
+    out = root / "build" / "chip_smoke"
+    files = {"float32": write_foreign_voice(torch, params, hp, out),
+             "int8": write_foreign_voice(torch, params, hp, out,
+                                         "foreign_q8", quantize=True)}
+    kernels = all_kernels()
+    reset_launches(kernels)
+    voices = {}
+    for kind, (model_path, config_path) in files.items():
+        t0 = time.perf_counter()
+        voices[kind] = TTSVoice.load(str(model_path), str(config_path))
+        print(f"{tag}: {kind}: {model_path.stat().st_size / 2 ** 20:.1f} MiB"
+              f", {len(voices[kind].engine.runner.model.nodes)} nodes, "
+              f"loaded in {time.perf_counter() - t0:.2f} s", flush=True)
+        onnx_voice_check(torch, voices[kind], kind, seed, tag)
+    native = TTSVoice.load(*map(str, native_files))
+    counts = launch_counts(kernels)
+    check(not any(counts.values()),
+          f"{tag}: the graph engine launched kernels {counts}")
+    onnx_timings(torch, voices, native, seed, tag)
+    reset_launches(kernels)
+    onnx_served(torch, voices["float32"], seed, tag)
+    counts = launch_counts(kernels)
+    print(f"{tag}: launches of A-D in the served requests {counts}",
+          flush=True)
+    check(not any(counts.values()),
+          f"{tag}: the served foreign voice launched kernels {counts}")
+    print(f"{tag}: the phase took {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+
+
+def precision_phase(torch, native_files, seed, tag="precision"):
+    """matmul_precision per engine: a default engine's outputs, bit for
+    bit, before and after a "high" engine of the same voice captures and
+    replays on another thread; a fresh default engine capturing beside a
+    fresh "high" one gives the same; both TF32 flags off afterwards;
+    "highest" equal to the default; "high" against the default and both
+    engines' request ms."""
+    import threading
+
+    from phoonnx_tpu_torch import TTSVoice
+
+    def load(prec=None):
+        return TTSVoice.load(*map(str, native_files),
+                             matmul_precision=prec).engine
+
+    voice = TTSVoice.load(*map(str, native_files))
+    default = voice.engine
+    ids = ids_of(voice, 97, 3)
+    ref = default.synthesize_ids(ids, seed=seed)
+
+    def in_pair(fn_a, fn_b):
+        out, errors = {}, []
+        start = threading.Barrier(2)
+
+        def run(key, fn):
+            try:
+                start.wait(timeout=60)
+                out[key] = fn()
+            except Exception as exc:  # reported below
+                errors.append(exc)
+
+        threads = [threading.Thread(target=run, args=("a", fn_a)),
+                   threading.Thread(target=run, args=("b", fn_b))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+            check(not t.is_alive(), f"{tag}: a thread did not finish")
+        check(not errors, f"{tag}: {errors}")
+        return out["a"], out["b"]
+
+    high = load("high")
+    during, high_out = in_pair(
+        lambda: [default.synthesize_ids(ids, seed=seed) for _ in range(3)],
+        lambda: [high.synthesize_ids(ids, seed=seed) for _ in range(3)])
+    after = default.synthesize_ids(ids, seed=seed)
+    check(all(np.array_equal(x, ref) for x in during + [after]),
+          f"{tag}: the default engine's output moved beside a high engine")
+    fresh, fresh_high = load(), load("high")
+    got, _ = in_pair(lambda: fresh.synthesize_ids(ids, seed=seed),
+                     lambda: fresh_high.synthesize_ids(ids, seed=seed))
+    check(np.array_equal(got, ref),
+          f"{tag}: a default engine captured beside a high one differs")
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    check(flags == (False, False), f"{tag}: TF32 flags left at {flags}")
+    highest = load("highest").synthesize_ids(ids, seed=seed)
+    check(np.array_equal(highest, ref), f"{tag}: highest differs from "
+          f"the default by {np.abs(highest - ref).max():.3e}")
+    h = high_out[-1]
+    diff = (float(np.abs(h - ref).max()) if h.shape == ref.shape
+            else None)
+    times = {"default": [], "high": []}
+    for _ in range(ONNX_RUNS):
+        for k, e in (("default", default), ("high", high)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            e.synthesize_ids(ids, seed=seed)
+            times[k].append((time.perf_counter() - t0) * 1e3)
+    print(f"{tag}: {len(ids)} ids: default and highest equal bit for bit "
+          f"(before, beside and after a high engine on another thread, and "
+          f"a default engine captured beside a high one); high vs default: "
+          f"{len(h)} vs {len(ref)} samples, max_abs "
+          + (f"{diff:.3e}" if diff is not None else "n/a (lengths differ)")
+          + f"; request ms median default "
+          f"{statistics.median(times['default']):.3f}, high "
+          f"{statistics.median(times['high']):.3f} ({ONNX_RUNS} in turns); "
+          f"flags after {flags}", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -3313,6 +3670,13 @@ def main() -> None:
         torch, args.seed, ROOT)
     memory_line(torch, "voice conversion")
     cli_phase((model_path, config_path), ms_files, args.seed, ROOT)
+
+    # foreign voices on the ONNX graph engine (no kernel of A-D), and the
+    # engines' matmul precision
+    onnx_phase(torch, params, hp, (model_path, config_path), args.seed + 14,
+               ROOT)
+    memory_line(torch, "the foreign voices")
+    precision_phase(torch, (model_path, config_path), args.seed + 15)
 
     # training: kernel D, at medium and on the MB-iSTFT decoder
     data = training_dataset(torch, ROOT, args.seed)

@@ -37,8 +37,10 @@ prefix first) get the prior rows that two-phase synthesis draws, and
 with the same seed every mode gives the same audio.
 """
 
+import contextlib
 import logging
 import math
+import threading
 from functools import partial
 from typing import Iterator, List, Optional, Sequence, Tuple
 
@@ -63,9 +65,13 @@ DEFAULT_FRAME_BUCKETS = (64, 128, 256, 384, 512, 768, 1024, 1536, 2048,
 # latents on the prefix's first frames.
 FLOW_CONTEXT = 32
 
-# ROADMAP.md port-queue item 'bf16', whose matmul-precision knob is the
-# part not ported yet
-BF16_ITEM = "ROADMAP.md, port queue: 'bf16'"
+# the matmul precisions the JAX CLIs offer, under the names torch uses
+# (torch.set_float32_matmul_precision); None is "default"
+MATMUL_PRECISIONS = (None, "default", "high", "highest")
+
+# one lock for the process-wide TF32 flags: every scope and every write
+# of them holds it
+_PREC_LOCK = threading.RLock()
 
 # the engine's dtypes: float32, and bfloat16 as the JAX engine serves
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -83,9 +89,45 @@ def resolve_device(device=None) -> torch.device:
                 "phoonnx_tpu_torch runs on a CUDA GPU by default and none is "
                 "available; pass device='cpu' to run the plain PyTorch path")
         # the port's contract is float32: no TF32 in cuBLAS or cuDNN
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+        # outside a "high" scope; the lock waits for any scope another
+        # thread holds, which restores the flags when it ends
+        with _PREC_LOCK:
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
     return device
+
+
+def check_precision(name: Optional[str]) -> Optional[str]:
+    """``name`` if it is one of :data:`MATMUL_PRECISIONS`, else raise."""
+    if name not in MATMUL_PRECISIONS:
+        raise ValueError(f"matmul_precision {name!r}: None, 'default', "
+                         "'high' or 'highest'")
+    return name
+
+
+@contextlib.contextmanager
+def _prec_scope(name: Optional[str]):
+    """An engine's matmul precision around the eager run (or the capture)
+    of one of its programs, as the JAX engine's ``_prec_scope`` is around
+    its traces. ``"high"`` allows TF32 in cuBLAS and cuDNN, the library
+    products; ``None``, ``"default"`` and ``"highest"`` keep both off, the
+    port's float32 contract. The hand-written kernels keep their own
+    arithmetic under every value. Per engine, not per process: the scope
+    holds one process-wide lock while it runs and restores both flags on
+    exit, so an engine of one precision never runs under another's flags
+    (a default engine enters it too). A CUDA graph replays the kernels it
+    captured, so a replay needs no scope."""
+    allow = check_precision(name) == "high"
+    with _PREC_LOCK:
+        saved = (torch.backends.cuda.matmul.allow_tf32,
+                 torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_tf32 = allow
+        torch.backends.cudnn.allow_tf32 = allow
+        try:
+            yield
+        finally:
+            (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32) = saved
 
 
 def _same_device(a: torch.device, b: torch.device) -> bool:
@@ -172,17 +214,18 @@ class VitsEngine:
         one seed draw the same noise), durations and frame counts stay
         float32 and int32, and the kernels take bfloat16 tensors.
 
-        matmul_precision: the port computes products at full precision
-        only so far; other values raise.
+        matmul_precision: ``None``/``"default"``, ``"high"`` or
+        ``"highest"``, the JAX engine's values; another raises. ``"high"``
+        allows TF32 in the library products (cuBLAS, cuDNN) of this
+        engine's programs, the others keep them float32; kernels A, B and
+        C compute as they always do (f32, C in 3xTF32). The setting is
+        scoped to this engine (:func:`_prec_scope`); on the CPU it changes
+        nothing.
         """
         if dtype not in DTYPES:
             raise ValueError(
                 f"dtype {dtype!r}: 'float32' or 'bfloat16'")
-        if matmul_precision is not None:
-            raise ValueError(
-                f"matmul_precision {matmul_precision!r}: phoonnx_tpu_torch "
-                f"computes float32 products at full precision only so far "
-                f"({BF16_ITEM})")
+        self.matmul_precision = check_precision(matmul_precision)
         if mode not in ("two_phase", "fused"):
             raise ValueError(f"mode {mode!r}: 'two_phase' or 'fused'")
         self.hp = hp
@@ -196,8 +239,8 @@ class VitsEngine:
         self.dtype = DTYPES[dtype]
         self.params = vits_model.attach_fused_specs(nn.cast_floating(
             vits_model.params_to_device(params, self.device), self.dtype))
-        self.graphs = Graphs(self.device) if self.device.type == "cuda" \
-            else None
+        self.graphs = Graphs(self.device, self.matmul_precision) \
+            if self.device.type == "cuda" else None
 
     @property
     def max_frames(self) -> int:
@@ -225,7 +268,8 @@ class VitsEngine:
                 text_buckets=self.text_buckets,
                 frame_buckets=self.frame_buckets, dtype=self.dtype_str,
                 mode=self.mode, frames_per_token=self.frames_per_token,
-                fetch_pcm16=self.fetch_pcm16, device=dev))
+                fetch_pcm16=self.fetch_pcm16, device=dev,
+                matmul_precision=self.matmul_precision))
         return out
 
     # -- programs: tensors in, tensors out ---------------------------------
@@ -329,10 +373,12 @@ class VitsEngine:
     # -- dispatch ----------------------------------------------------------
 
     def _run(self, key: tuple, fn, *args):
-        """``fn(*args)``: directly on the CPU, through the key's CUDA graph
-        on the card (fresh outputs either way)."""
+        """``fn(*args)``: directly on the CPU (in the engine's precision
+        scope), through the key's CUDA graph on the card (fresh outputs
+        either way; the graph's capture is in the scope)."""
         if self.graphs is None:
-            return fn(*args)
+            with _prec_scope(self.matmul_precision):
+                return fn(*args)
         return self.graphs.run(key, fn, args)
 
     def _fetch(self, *tensors) -> List[np.ndarray]:
@@ -679,7 +725,9 @@ class VitsEngine:
         n_fft = (hp.spec_channels - 1) * 2
         hop = hp.total_upsample
         wav = torch.as_tensor(np.asarray(audio, np.float32))[None, :]
-        spec = spectrogram(wav.to(self.device), n_fft, hop, n_fft)  # [1, T, C]
+        with _prec_scope(self.matmul_precision):
+            spec = spectrogram(wav.to(self.device), n_fft, hop,
+                               n_fft)  # [1, T, C]
         n_frames = spec.shape[1]
         f_bucket = _bucket_for(n_frames, self.frame_buckets)
         spec = torch.nn.functional.pad(

@@ -31,6 +31,11 @@ replay runs no Python, so each graph keeps the count increments of its
 capture and adds them at every replay; the capture itself launches
 nothing and counts nothing.
 
+Precision: each warm-up and capture runs in the engine's matmul-precision
+scope (``engine._prec_scope``), so the library products a graph captures
+(cuBLAS, cuDNN) are those of the engine's precision; a replay runs what
+was captured and needs no scope.
+
 Memory: all graphs of an engine draw from one pool. A capture reuses only
 memory that earlier captures freed (their temporaries), so one graph's
 replay may write over another graph's static outputs; that is safe
@@ -159,8 +164,10 @@ class CapturedProgram:
 class Graphs:
     """An engine's captured programs on one device, by key."""
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device,
+                 matmul_precision: Optional[str] = None):
         self.device = device
+        self.matmul_precision = matmul_precision
         self.programs: Dict[tuple, CapturedProgram] = {}
         self.replays: "collections.Counter[tuple]" = collections.Counter()
         self._stream: Optional[torch.cuda.Stream] = None
@@ -197,8 +204,11 @@ class Graphs:
         """Capture ``fn`` at ``key``; out of device memory, raise naming the
         key and what the engine's graphs already hold (no graph is
         dropped and nothing runs eagerly in its place)."""
+        from phoonnx_tpu_torch.infer.engine import _prec_scope
+
         try:
-            return CapturedProgram(fn, args, self._pool)
+            with _prec_scope(self.matmul_precision):
+                return CapturedProgram(fn, args, self._pool)
         except Exception as exc:
             if not _out_of_memory(exc):
                 raise

@@ -49,8 +49,10 @@ Where this differs from ``phoonnx_tpu/serve.py``, and why:
 * **Devices** are ``torch.device`` values: ``devices`` (an int, ``"all"``
   or a list) names CUDA devices counted by ``torch.cuda.device_count()``,
   and each replica is a :meth:`VitsEngine.replicate` engine with its own
-  parameters, graphs, lock and stream. Every voice's engine replicates;
-  there is no engine that cannot.
+  parameters, graphs, lock and stream. A voice whose engine cannot
+  replicate (the ONNX graph engine of a foreign voice) is served on its
+  one device with a warning, as the JAX server does; its text has no
+  bucket limit.
 """
 
 import io
@@ -427,11 +429,19 @@ class TTSServer:
         self.max_batch = int(max_batch)
         self.batchers = {}
         for name, v in voice.items():
-            if devs is not None and len(devs) > 1:
+            if devs is not None and len(devs) > 1 \
+                    and hasattr(v.engine, "replicate"):
                 self.batchers[name] = BatcherPool(
                     v.engine.replicate(devs), max_batch=max_batch,
                     max_wait_ms=max_wait_ms)
             else:
+                if devs is not None and len(devs) > 1:
+                    # a foreign voice's graph engine cannot replicate:
+                    # serve it on one device instead of failing the boot
+                    LOG.warning(
+                        "voice %r uses a non-replicable engine (%s); "
+                        "serving it on one device", name,
+                        type(v.engine).__name__)
                 self.batchers[name] = DynamicBatcher(
                     v.engine, max_batch=max_batch,
                     max_wait_ms=max_wait_ms)
@@ -522,9 +532,9 @@ class TTSServer:
         # validate HERE (handler thread): an oversized sentence must 400
         # its own request, not fail inside the dispatcher where the error
         # would poison every request co-batched with it
-        limit = voice.engine.text_buckets[-1]
+        limit = getattr(voice.engine, "text_buckets", (0,))[-1]
         for row in ids:
-            if len(row) > limit:
+            if limit and len(row) > limit:
                 raise ValueError(
                     f"a sentence phonemizes to {len(row)} ids, above the "
                     f"largest text bucket {limit} — split the input text"
@@ -806,8 +816,9 @@ def _parser():
     ap.add_argument("--max-wait-ms", type=float, default=10.0)
     ap.add_argument("--precision", default=None,
                     choices=["default", "high", "highest"],
-                    help="matmul precision; only 'default' (products at "
-                         "full precision) is ported")
+                    help="matmul precision: 'high' allows TF32 in "
+                         "cuBLAS/cuDNN products; 'default' and 'highest' "
+                         "keep them float32")
     ap.add_argument("--bf16", action="store_true",
                     help="serve in bfloat16 (every floating weight cast, "
                          "the kernels' bf16 builds)")

@@ -7,9 +7,9 @@ click. Usage:
     echo "Hello." | python -m phoonnx_tpu_torch.synthesize -m voice.onnx \\
         -o out.wav
 
-``--bf16`` runs the voice in bfloat16, as the JAX CLI does; a
-``--precision`` other than ``default`` raises the engine's error
-(ROADMAP.md port queue 'bf16'). The
+``--bf16`` runs the voice in bfloat16 and ``--precision`` sets the
+engine's matmul precision (``high`` allows TF32 in the library products),
+as in the JAX CLI. The
 JAX CLI's ``--compile-cache`` has no counterpart: the port compiles no
 XLA programs (``observability.py``).
 """
@@ -47,8 +47,9 @@ def _parser() -> argparse.ArgumentParser:
                         "weight cast, the kernels' bf16 builds)")
     parser.add_argument("--precision", default=None,
                         choices=["default", "high", "highest"],
-                        help="Matmul precision; only 'default' (products "
-                        "at full precision) is ported")
+                        help="Matmul precision: 'high' allows TF32 in "
+                        "cuBLAS/cuDNN products; 'default' and 'highest' "
+                        "keep them float32")
     parser.add_argument("--stream", action="store_true",
                         help="Write WAV frames incrementally as the vocoder "
                         "produces them (sub-sentence chunked decode; "

@@ -5,7 +5,9 @@ PyTorch port of ``phoonnx_tpu/voice.py``, mirroring the reference surface
 ``config.json`` voices, ``synthesize`` yields one :class:`AudioChunk` per
 sentence, ``synthesize_wav`` streams into a wave writer. The onnxruntime
 session is replaced by :class:`phoonnx_tpu_torch.infer.VitsEngine`, which
-runs on the GPU unless the caller passes ``device="cpu"``.
+runs on the GPU unless the caller passes ``device="cpu"``; a voice whose
+weights do not import by name runs its own ONNX graph on the same device
+(:class:`phoonnx_tpu_torch.infer.onnx_engine.OnnxFallbackEngine`).
 
 Documented divergence: the reference's ``phonemize`` duplicates every
 sentence via ``phonemes.extend(phonemes)`` (voice.py:206) and loses raw
@@ -37,10 +39,6 @@ from phoonnx_tpu_torch.phonemizers import Phonemizer  # noqa: F401
 from phoonnx_tpu_torch.phonemizers.base import PhonemizedChunks
 
 LOG = logging.getLogger(__name__)
-
-# ROADMAP.md port-queue item that brings the other phonemizers and the
-# ONNX graph engine for foreign voices across
-FALLBACK_ITEM = "ROADMAP.md, port queue: 'Other phonemizers and OnnxFallbackEngine'"
 
 _PHONEME_BLOCK_PATTERN = re.compile(r"(\[\[.*?\]\])")
 _LOCALE_PATH = os.path.join(os.path.dirname(__file__), "locale")
@@ -156,9 +154,18 @@ class TTSVoice:
         device: None means the GPU, and raises RuntimeError when there is
         none; ``"cpu"`` runs the plain PyTorch path. ``dtype``:
         ``"float32"`` or ``"bfloat16"`` (every floating weight cast, the
-        kernels' bf16 builds, as the JAX package serves); a
-        ``matmul_precision`` other than the default raises
-        (:class:`VitsEngine`).
+        kernels' bf16 builds, as the JAX package serves);
+        ``matmul_precision``: ``None``/``"default"``, ``"high"`` or
+        ``"highest"`` (:class:`VitsEngine`).
+
+        A voice whose weights do not import by name (unresolved int8
+        tensors, a foreign layout such as coqui-VITS or mimic3, or
+        hyperparameters that cannot be inferred) runs its own ONNX graph
+        on ``device`` through
+        :class:`~phoonnx_tpu_torch.infer.onnx_engine.OnnxFallbackEngine`,
+        with a warning, as in the JAX package. ``dtype`` and
+        ``matmul_precision`` do not reach that engine: the graph runs in
+        its own dtypes, with TF32 off.
         """
         from phoonnx_tpu_torch.infer.engine import VitsEngine, resolve_device
         from phoonnx_tpu_torch.models.vits.load import (
@@ -199,20 +206,38 @@ class TTSVoice:
         for key in ("istft_hop", "istft_n_fft", "istft_bands"):
             if key in onnx_model.metadata:
                 overrides[key] = int(onnx_model.metadata[key])
-        unresolved = [k for k in named if k.endswith("_quantized")]
-        if unresolved:
-            raise ValueError(
-                f"{len(unresolved)} quantized tensors could not be resolved "
-                f"by name (first: {unresolved[0]!r}); such voices run on "
-                f"the ONNX graph engine, which is not ported yet "
-                f"({FALLBACK_ITEM})")
-        if routed_fraction(named) < 0.25:
-            raise ValueError(
-                "initializer names do not match the VITS import layout; "
-                "such voices run on the ONNX graph engine, which is not "
-                f"ported yet ({FALLBACK_ITEM})")
-        hp = infer_hparams_from_flat(named, **overrides)
-        params = params_from_flat(named, hp, strict=False)
+        try:
+            unresolved = [k for k in named if k.endswith("_quantized")]
+            if unresolved:
+                # e.g. ambiguous per-channel axes (square weights): a
+                # partial import would silently leave those leaves
+                # random — run the voice's own graph instead, where the
+                # node attributes carry the exact dequantization axes
+                raise ValueError(
+                    f"{len(unresolved)} quantized tensors could not be "
+                    f"resolved by name (first: {unresolved[0]!r})")
+            if routed_fraction(named) < 0.25:
+                raise ValueError(
+                    "initializer names do not match the VITS import layout")
+            hp = infer_hparams_from_flat(named, **overrides)
+            params = params_from_flat(named, hp, strict=False)
+        except (KeyError, ValueError) as exc:
+            # Not the piper/phoonnx VITS weight layout (e.g. a coqui-VITS
+            # or mimic3 export): run the voice's own ONNX graph, op by op
+            # on the device (onnx/torch_lowering.py)
+            from phoonnx_tpu_torch.infer.onnx_engine import (
+                OnnxFallbackEngine,
+            )
+
+            LOG.warning(
+                "weights do not match the VITS import layout (%s); "
+                "falling back to running the voice's own ONNX graph on %s "
+                "(a voice in the piper/phoonnx layout runs on the native "
+                "engine)", exc, device)
+            engine = OnnxFallbackEngine(onnx_model, config.sample_rate,
+                                        device=device)
+            return TTSVoice(engine=engine, config=config)
+        # the weights imported: from here on, errors are genuine
         engine = VitsEngine(params, hp, dtype=dtype, device=device,
                             matmul_precision=matmul_precision)
         return TTSVoice(engine=engine, config=config)

@@ -154,16 +154,27 @@ def test_cli_synthesize_empty_text_writes_valid_wav(voice_files, tmp_path,
         assert f.getnframes() == 0
 
 
-# --bf16 is ported; a --precision other than default is not, with or
-# without it, and its error names the ROADMAP item ('bf16')
+# --bf16 and --precision are ported: on the CPU a --precision of 'high'
+# or 'highest' writes exactly the WAV of the default (TF32 changes only
+# CUDA products), with or without --bf16; another value is refused
 @pytest.mark.parametrize("flags", [["--bf16", "--precision", "high"],
-                                   ["--precision", "highest"]],
-                         ids=["bf16", "precision"])
+                                   ["--precision", "highest"],
+                                   ["--precision", "high"],
+                                   ["--precision", "medium"]],
+                         ids=["bf16", "precision", "high", "bad"])
 def test_cli_refuses_what_is_not_ported(voice_files, tmp_path, flags):
-    with pytest.raises(ValueError, match="bf16"):
-        synthesize_main(["-m", str(voice_files), "-o",
-                         str(tmp_path / "x.wav"), "-t", "[[ab]]",
-                         "--device", "cpu"] + flags)
+    common = ["-m", str(voice_files), "-t", "[[ab cd]]", "--seed", "4",
+              "--device", "cpu"]
+    if flags[-1] == "medium":
+        with pytest.raises(SystemExit) as err:
+            synthesize_main(common + ["-o", str(tmp_path / "x.wav")] + flags)
+        assert err.value.code != 0
+        return
+    bf16 = [f for f in flags if f == "--bf16"]
+    synthesize_main(common + ["-o", str(tmp_path / "x.wav")] + flags)
+    synthesize_main(common + ["-o", str(tmp_path / "ref.wav")] + bf16)
+    np.testing.assert_array_equal(_check_wav(tmp_path / "x.wav"),
+                                  _check_wav(tmp_path / "ref.wav"))
 
 
 @pytest.mark.parametrize("stream", [False, True], ids=["whole", "stream"])

@@ -972,3 +972,49 @@ def test_bf16_server_answers_requests(device, tmp_path):
         chip_smoke.served_held(torch, srv, voice, 12, "card bf16")
     finally:
         srv.stop()
+
+
+@pytest.mark.parametrize("quantize", [False, True], ids=["float32", "int8"])
+def test_foreign_voice_runs_on_the_card(device, tmp_path, quantize):
+    """A foreign voice (renamed initializers) on the ONNX graph engine
+    with its runner on the card, through ``chip_smoke.onnx_voice_check``:
+    no floating or data-sized value on the host, two seeded calls equal,
+    the card within 1e-3 of the peak of the host interpreter on the same
+    feeds; kernels A-D are not launched."""
+    import chip_smoke
+    from phoonnx_tpu_torch import TTSVoice
+
+    hp = model.VitsHParams.preset("medium", n_layers=2)
+    p = model.random_params(hp, torch.Generator().manual_seed(13))
+    files = chip_smoke.write_foreign_voice(torch, p, hp, tmp_path,
+                                           quantize=quantize)
+    kernels = chip_smoke.all_kernels()
+    chip_smoke.reset_launches(kernels)
+    voice = TTSVoice.load(*map(str, files))
+    chip_smoke.onnx_voice_check(torch, voice, "int8" if quantize
+                                else "float32", 13, "card onnx")
+    assert not any(chip_smoke.launch_counts(kernels).values())
+
+
+def test_interpreter_on_the_card_is_refused(device, tmp_path):
+    from phoonnx_tpu_torch.infer.onnx_engine import OnnxFallbackEngine
+    from phoonnx_tpu_torch.onnx.writer import write_onnx
+    from phoonnx_tpu_torch.onnx.reader import read_onnx
+
+    path = tmp_path / "g.onnx"
+    write_onnx(str(path), {}, inputs=["x"], outputs=["y"],
+               nodes=[("Identity", ["x"], ["y"], {})])
+    with pytest.raises(ValueError, match="compile=False"):
+        OnnxFallbackEngine(read_onnx(str(path)), 16000, compile=False)
+
+
+def test_precision_is_per_engine(device, tmp_path):
+    """``chip_smoke.precision_phase`` on a two-layer medium voice: a
+    default engine bit for bit the same beside "high" engines on another
+    thread, "highest" equal to the default, both TF32 flags off after."""
+    import chip_smoke
+
+    hp = model.VitsHParams.preset("medium", n_layers=2)
+    p = model.random_params(hp, torch.Generator().manual_seed(14))
+    files = chip_smoke.write_voice(torch, p, hp, tmp_path)
+    chip_smoke.precision_phase(torch, files, 14, tag="card precision")

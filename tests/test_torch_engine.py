@@ -328,12 +328,93 @@ def test_engine_options_refused_and_flags(models):
                       device="cpu").dtype == torch.bfloat16
     with pytest.raises(ValueError, match="dtype"):
         VitsEngine(params, hp, dtype="float16", device="cpu")
-    with pytest.raises(ValueError, match="bf16"):
-        VitsEngine(params, hp, matmul_precision="highest", device="cpu")
+    # the JAX engine's matmul precisions: accepted, and on the CPU (where
+    # TF32 does not exist) the audio of each equals the default's
+    want = eng.synthesize_ids([1, 4, 5, 6, 2], seed=3)
+    for prec in ("default", "high", "highest"):
+        other = VitsEngine(params, hp, matmul_precision=prec, device="cpu")
+        assert other.matmul_precision == prec
+        np.testing.assert_array_equal(
+            other.synthesize_ids([1, 4, 5, 6, 2], seed=3), want)
+    with pytest.raises(ValueError, match="'high'"):
+        VitsEngine(params, hp, matmul_precision="medium", device="cpu")
     with pytest.raises(ValueError, match="mode"):
         VitsEngine(params, hp, mode="eager", device="cpu")
     assert VitsEngine.compiled_batching is True
     assert eng.graphs is None  # the CPU calls the programs directly
+
+
+def _tf32():
+    return (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+
+
+def _record_flags(engine, seen):
+    """Wrap the engine's phase-1 program to record the TF32 flags it runs
+    under."""
+    program = engine._phase1
+
+    def phase1(*args):
+        seen.append(_tf32())
+        return program(*args)
+
+    engine._phase1 = phase1
+
+
+def test_precision_scope_restores_the_flags(models):
+    """A program runs under its engine's flags, which are restored after
+    it, and after an exception inside the scope."""
+    _, _, eng = models
+    high = VitsEngine(eng.params, eng.hp, matmul_precision="high",
+                      device="cpu")
+    before = _tf32()
+    seen = []
+    _record_flags(high, seen)
+    high.synthesize_ids([1, 4, 5, 2], seed=0)
+    assert seen == [(True, True)] and _tf32() == before
+    with pytest.raises(RuntimeError, match="inside"):
+        with port_engine._prec_scope("high"):
+            assert _tf32() == (True, True)
+            raise RuntimeError("inside")
+    assert _tf32() == before
+    with pytest.raises(ValueError, match="matmul_precision"):
+        with port_engine._prec_scope("fast"):
+            pass
+
+
+def test_precision_is_per_engine_across_threads(models):
+    """A default engine on one thread and a "high" engine on another,
+    their requests interleaved: each program runs under its own engine's
+    flags, never the other's."""
+    import threading
+
+    _, _, eng = models
+    engines = {prec: VitsEngine(eng.params, eng.hp, matmul_precision=prec,
+                                device="cpu") for prec in (None, "high")}
+    seen = {prec: [] for prec in engines}
+    for prec, engine in engines.items():
+        _record_flags(engine, seen[prec])
+    start = threading.Barrier(2)
+    errors = []
+
+    def requests(engine):
+        try:
+            start.wait(timeout=30)
+            for i in range(6):
+                engine.synthesize_ids([1, 4, 5, 2], seed=i)
+        except Exception as exc:  # reported below
+            errors.append(exc)
+
+    threads = [threading.Thread(target=requests, args=(e,))
+               for e in engines.values()]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+        assert not t.is_alive()
+    assert not errors
+    assert seen[None] == [(False, False)] * 6
+    assert seen["high"] == [(True, True)] * 6
 
 
 # the bound of tests/test_torch_streaming.py: stream against monolithic

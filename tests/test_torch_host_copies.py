@@ -4,7 +4,9 @@
 copies of the JAX-free front-end, ONNX and training-data modules. Each copy must equal
 its original once ``phoonnx_tpu.`` is rewritten to ``phoonnx_tpu_torch.``.
 ``config.py`` and ``phonemizers/base.py`` are trimmed copies, checked on
-the classes and functions they keep.
+the classes and functions they keep; ``onnx/executor.py`` is the
+original but for its two convolution handlers, which call torch where
+the original calls JAX.
 """
 
 import ast
@@ -19,7 +21,7 @@ PORT_PKG = ROOT / "phoonnx_tpu_torch"
 VERBATIM = ["config.py", "phoneme_ids.py", "util.py", "numbers.py",
             "dates.py", "sentences.py", "langtags.py", "onnx/wire.py",
             "onnx/reader.py", "onnx/writer.py", "onnx/dequant.py",
-            "train/dataset.py"]
+            "onnx/builder.py", "onnx/vits_graph.py", "train/dataset.py"]
 VERBATIM.remove("config.py")  # trimmed: see test_config_copy
 
 
@@ -71,6 +73,21 @@ def test_config_copy():
     assert set(copy) == set(original)
     for name, src in original.items():
         if name != "get_phonemizer":
+            assert copy[name] == _rewrite(src), name
+
+
+def test_executor_copy():
+    """Every top-level function, class and assignment of the numpy
+    interpreter is the original's, but ``_op_conv`` and
+    ``_op_conv_transpose`` (torch.nn.functional in place of jax.lax)."""
+    original = _top_level(JAX_PKG / "onnx" / "executor.py")
+    copy = _top_level(PORT_PKG / "onnx" / "executor.py")
+    assert set(copy) == set(original)
+    rewritten = {"_op_conv", "_op_conv_transpose"}
+    for name, src in original.items():
+        if name in rewritten:
+            assert "jax" in src and "jax" not in copy[name], name
+        else:
             assert copy[name] == _rewrite(src), name
 
 

@@ -2,8 +2,9 @@
 
 (a) A fresh interpreter whose import system refuses ``jax``, ``jaxlib``
 and ``phoonnx_tpu`` (but not ``phoonnx_tpu_torch``) imports every module
-of the port, synthesizes, serves one seeded request through the batcher
-and takes one training step on the CPU. (b) The entry points default to
+of the port, synthesizes, serves one seeded request through the batcher,
+takes one training step and runs an exported voice graph on the ONNX
+graph engine, on the CPU. (b) The entry points default to
 CUDA and raise without it; they never drop to the CPU on their own.
 """
 
@@ -39,7 +40,9 @@ for trained in ("ops.mas", "ops.stft", "models.vits.discriminator",
                 "train.losses", "train.step", "train.dataset",
                 "train.checkpoint", "train.trainer", "ops.istft", "ops.pqmf",
                 "models.vits.istft_decoder", "infer.graphs",
-                "observability", "synthesize", "convert", "serve"):
+                "observability", "synthesize", "convert", "serve",
+                "onnx.executor", "onnx.torch_lowering", "onnx.builder",
+                "onnx.vits_graph", "infer.onnx_engine"):
     assert "phoonnx_tpu_torch." + trained in names, trained
 
 import torch
@@ -68,6 +71,17 @@ batcher = DynamicBatcher(engine, max_batch=2, autostart=False)
 sub = batcher.submit([[1, 4, 5, 2], [1, 6, 2]], (0.667, 1.0, 0.8), seed=0)
 batcher._drain_once()
 assert len(sub.wait(timeout=60)) > 0
+import tempfile
+from phoonnx_tpu_torch.models.vits.load import params_to_flat
+from phoonnx_tpu_torch.onnx.reader import read_onnx
+from phoonnx_tpu_torch.onnx.vits_graph import export_vits_onnx
+from phoonnx_tpu_torch.infer.onnx_engine import OnnxFallbackEngine
+with tempfile.TemporaryDirectory() as tmp:
+    export_vits_onnx(params_to_flat(random_params(
+        hp, torch.Generator().manual_seed(0))), hp, tmp + "/v.onnx")
+    graph_engine = OnnxFallbackEngine(read_onnx(tmp + "/v.onnx"),
+                                      hp.sample_rate, device="cpu")
+assert len(graph_engine.synthesize_ids([1, 4, 5, 6, 2], seed=0)) > 0
 leaked = sorted(m for m in sys.modules
                 if any(m == b or m.startswith(b + ".") for b in BLOCKED))
 assert not leaked, leaked

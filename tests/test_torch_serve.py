@@ -604,18 +604,31 @@ def test_device_memory_stats_shape():
 
 # -- the CLI ----------------------------------------------------------------
 
-def test_cli_refuses_bf16(voice_path):
-    """``--bf16`` serves (tests/test_torch_cli.py::test_serve_cli_bf16);
-    what is still refused is a matmul precision other than the default,
-    with or without it."""
-    from phoonnx_tpu_torch.serve import main
+@pytest.mark.parametrize("flags,want", [
+    (["--bf16", "--precision", "high"], ("bfloat16", "high")),
+    (["--precision", "highest"], ("float32", "highest")),
+    (["--precision", "default"], ("float32", None)),
+    (["--precision", "medium"], None)], ids=["bf16", "highest", "default",
+                                             "bad"])
+def test_cli_refuses_bf16(voice_path, monkeypatch, flags, want):
+    """``--bf16`` and ``--precision`` reach the served engine (the
+    server is built and not started); a precision the JAX server does not
+    offer is refused."""
+    from phoonnx_tpu_torch import serve
 
-    with pytest.raises(ValueError, match="float32"):
-        main(["--model", str(voice_path), "--device", "cpu", "--bf16",
-              "--precision", "high"])
-    with pytest.raises(ValueError, match="float32"):
-        main(["--model", str(voice_path), "--device", "cpu",
-              "--precision", "highest"])
+    seen = []
+    monkeypatch.setattr(serve.TTSServer, "serve_forever", lambda self: (
+        seen.append((self.voice.engine.dtype_str,
+                     self.voice.engine.matmul_precision)), self.stop()))
+    argv = ["--model", str(voice_path), "--device", "cpu", "--port",
+            "0"] + flags
+    if want is None:
+        with pytest.raises(SystemExit) as err:
+            serve.main(argv)
+        assert err.value.code != 0
+        return
+    serve.main(argv)
+    assert seen == [want]
 
 
 def _free_port() -> int:

@@ -169,13 +169,21 @@ def test_speaker_id_range_is_checked(voice):
 
 
 def test_foreign_weights_raise_naming_the_roadmap(tmp_path, voice_files):
+    """Weights in no known layout route to the ONNX graph engine on the
+    voice's device; this voice's graph is empty (no nodes, no outputs), so
+    synthesizing from it raises naming that."""
+    from phoonnx_tpu_torch.infer.onnx_engine import OnnxFallbackEngine
+
     model_path = tmp_path / "foreign.onnx"
     write_onnx(str(model_path),
                {"some.other.graph.weight": np.zeros((4, 4), np.float32)},
                metadata={"model_type": "vits"})
     config_path = voice_files[1]
-    with pytest.raises(ValueError, match="ROADMAP.md"):
-        TTSVoice.load(str(model_path), str(config_path), device="cpu")
+    voice = TTSVoice.load(str(model_path), str(config_path), device="cpu")
+    assert isinstance(voice.engine, OnnxFallbackEngine)
+    assert voice.engine.runner.device == torch.device("cpu")
+    with pytest.raises(ValueError, match="declares no outputs"):
+        voice.phoneme_ids_to_audio([1, 4, 5, 2])
 
 
 def test_other_dtypes_are_refused(voice_files):
