@@ -114,9 +114,27 @@ another sm_90a card) and the CUDA toolkit. The script
    engine bit for bit the same before, beside and after a ``"high"``
    engine of the same voice capturing and replaying on another thread,
    ``"highest"`` equal to the default, both TF32 flags off after, and
-   ``"high"`` against the default with both request times; ``memory:``
-   lines give the allocator's reserved and allocated memory after each
-   phase;
+   ``"high"`` against the default with both request times; the text
+   front end (``frontend:`` and its phases' lines): ``g2p:``, the ByT5
+   G2P engine at byt5-small widths (12 + 4 layers, d_model 1472, random
+   weights in HF naming from ``--seed``) in float32 and bfloat16, its
+   encoder and teacher-forced logits against the same port code on the
+   host's CPU, greedy decodes of 16 words of 12 bytes and of a 100-byte
+   sentence against the CPU's under the near-tie rule
+   (:func:`near_tie_split`), and the batch decode's ms, words/s,
+   tokens/s, device kernels a decode step, host reads and idle share;
+   ``arabic:``, a mantoq voice of the medium weights whose phonemizer
+   carries a tashkeel model of ``tools/bench_aux.py``'s geometry (built
+   with the port's GraphBuilder): diacritics and ids against the CPU's,
+   the runner's placement and device kernels, A, B and C launched, the
+   waveform against the CPU's; ``korean:``, a KoG2P voice's ids and
+   launches; ``hebrew:``, the phonikud diacritizer with
+   ``tests/test_phonikud_model.py``'s Gather-table model against the
+   CPU's, its download refused; ``byt5 voice:``, a voice whose G2P is an
+   initializers-only ONNX of the ``g2p:`` weights, its ids against the
+   CPU's, A, B and C launched and the G2P's share of a request;
+   ``memory:`` lines give the allocator's reserved and allocated memory
+   after each phase;
 4. training: writes a synthetic LJSpeech-style dataset (45 utterances of
    per-phoneme tones, 1.5 to 8 s, spectrograms from the port's STFT; 5
    held out for tests, 4 validation, 36 train) and runs
@@ -129,9 +147,9 @@ another sm_90a card) and the CUDA toolkit. The script
    utterances) held to that test's margins;
 5. prints each path's launch counts (every path counted from 0), one
    ``{"kernels": [...]}`` line whose launches sum the serving paths (A, B,
-   C, the server's load included; a graph replay adds the launches of its
-   capture; the bf16 builds ``A:fused_encoder_bf16`` etc. those of the
-   bf16 paths) and the two
+   C, the server's load and the front end's voices included; a graph
+   replay adds the launches of its capture; the bf16 builds
+   ``A:fused_encoder_bf16`` etc. those of the bf16 paths) and the two
    training runs (D), and, last, one
    ``{"ok": true, "device": {...}}`` line.
 
@@ -1343,6 +1361,31 @@ def device_profile(torch, fn, label, top=20):
         print(f"profile: {dev_us / 1e3:9.4f} ms  x{count:<5d} {key[:110]}",
               flush=True)
     return wall_us, busy_us, rows
+
+
+def near_tie_split(want, got, ref_logits, tol, eos_id, label):
+    """Greedy tokens ``got`` against the reference's ``want`` (pre-EOS
+    lists) under the near-tie rule. ``ref_logits`` [T, V] are the
+    reference's logits teacher-forced on its own tokens; where a step's
+    top-2 gap is below ``tol`` the other side's rounding may pick the
+    other token and the decodes split from there. The tokens (EOS
+    included) must agree up to the first such step; a split before it
+    fails. Prints both steps and returns (first near tie, first
+    difference or None)."""
+    ref_logits = np.asarray(ref_logits, np.float32)
+    top2 = np.sort(ref_logits, axis=-1)[:, -2:]
+    small = np.flatnonzero(top2[:, 1] - top2[:, 0] < tol)
+    tie = int(small[0]) if small.size else len(ref_logits)
+    w, g = list(want) + [eos_id], list(got) + [eos_id]
+    diff = next((i for i in range(min(len(w), len(g), len(ref_logits)))
+                 if w[i] != g[i]), None)
+    print(f"{label}: {len(want)} vs {len(got)} tokens, first near tie "
+          f"(top-2 gap < {tol:.3g}) at step {tie}, first difference at "
+          f"step {diff}", flush=True)
+    check(diff is None or diff >= tie,
+          f"{label}: the decodes split at step {diff}, before the first "
+          f"near tie at step {tie}")
+    return tie, diff
 
 
 # ---------------------------------------------------------------------------
@@ -3272,6 +3315,603 @@ def params_of(state):
     return step.leaves(state.params_g) + step.leaves(state.params_d)
 
 
+# ---------------------------------------------------------------------------
+# the text front end on the card: ByT5 G2P, diacritizers, bundled G2P
+# ---------------------------------------------------------------------------
+
+# byt5-small's widths (google/byt5-small's config.json), as
+# tools/bench_byt5.py sets them
+BYT5_SMALL = {"vocab_size": 384, "d_model": 1472, "d_kv": 64, "d_ff": 3584,
+              "num_heads": 6, "num_encoder_layers": 12,
+              "num_decoder_layers": 4}
+# tools/bench_byt5.py's decode: a Charsiu-style batch of 16 words of 12
+# bytes, 32 decode steps; and one 100-byte sentence
+G2P_WORDS, G2P_WORD_BYTES, G2P_STEPS, G2P_SENTENCE = 16, 12, 32, 100
+# the card against the same port code on the host's CPU, max-abs over the
+# peak: float32 (TF32 off) sums in other orders (2e-6 read on the H100);
+# bf16 rounds at the same points, but a sum can land on the other side of
+# a rounding (2^-8 a step; 3e-4 read). A wrong op differs by 1e-1 and more.
+G2P_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+# a decode split is allowed at a step whose reference top-2 gap is below
+# this many times the two decodes' measured logit difference
+TIE_MARGIN = 4.0
+G2P_RUNS = 7
+# the voices' id maps: every printable ASCII character (Buckwalter, and
+# the bytes a G2P emits), the pad/bos/eos and space ids first
+ASCII_IDS = {"_": 0, "^": 1, "$": 2, " ": 3}
+ASCII_IDS.update({chr(c): i + 4 for i, c in enumerate(
+    c for c in range(33, 127) if chr(c) not in ASCII_IDS)})
+ARABIC_TEXTS = ("مرحبا بالعالم", "ذهب الطالب إلى المدرسة",
+                "كتب الولد 12 درسا في 2024")
+KOREAN_TEXT = "안녕하세요 韓國 사람입니다"
+# tools/bench_aux.py's tashkeel geometry: char and hint embeddings of
+# 128, two bidirectional LSTM layers of 256, a per-character head
+TASHKEEL_EMB, TASHKEEL_HIDDEN, TASHKEEL_LAYERS = 128, 256, 2
+
+
+def byt5_words(rng, n_words: int, n_bytes: int):
+    """Byte ids as the phonemizers make them (printable bytes + 3) with
+    EOS, as tools/bench_byt5.py draws them."""
+    return [[int(b) + 3 for b in rng.integers(35, 125, n_bytes)] + [1]
+            for _ in range(n_words)]
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| over max(1, max |want|), on the host."""
+    got, want = got.float().cpu(), want.float().cpu()
+    return float((got - want).abs().max() / max(1.0, want.abs().max()))
+
+
+def g2p_compare(torch, card, cpu, batch, tol, tag):
+    """One batch on the card and on the CPU engine of the same weights:
+    the encoder output and the decoder's logits teacher-forced on the
+    CPU's tokens (max-abs over the peak, each within ``tol``); the
+    card engine's greedy tokens against the CPU's under the near-tie
+    rule, whose reference gaps are the CPU decode's own logits, step by
+    step, and whose tolerance is TIE_MARGIN times the two decodes'
+    largest logit difference over the steps both ran on the same tokens.
+    The inputs are padded as the engines pad them."""
+    from phoonnx_tpu_torch.infer.engine import _prec_scope
+    from phoonnx_tpu_torch.models import byt5
+
+    cfg = cpu.cfg
+    lanes = len(batch)
+    check(lanes & (lanes - 1) == 0, f"{tag}: {lanes} rows, not a power of 2")
+    bucket = next(b for b in cpu.input_buckets
+                  if max(map(len, batch)) <= b)
+    budget = cpu._decode_for(bucket).keywords["max_length"]
+    ids = np.zeros((lanes, bucket), np.int64)
+    for row, utt in enumerate(batch):
+        ids[row, :len(utt)] = utt
+    ids_t = torch.from_numpy(ids)
+    mask_t = (ids_t > 0).long()
+    decodes = {}
+    for name, eng in (("cpu", cpu), ("card", card)):
+        st = {}
+        with _prec_scope(None), torch.inference_mode():
+            toks, lens = byt5.greedy_decode(
+                eng.params, cfg, ids_t.to(eng.device),
+                mask_t.to(eng.device), max_length=budget, stats=st,
+                keep_logits=True)
+        toks, lens = toks.cpu(), lens.cpu()
+        decodes[name] = ([toks[r, :int(lens[r])].tolist()
+                          for r in range(lanes)], st["logits"].float().cpu())
+    (want, ref), (got, card_logits) = decodes["cpu"], decodes["card"]
+    check(card.greedy_decode_batch(batch) == got,
+          f"{tag}: the engine's decode differs from greedy_decode's")
+    steps = ref.shape[0]
+    teacher = np.zeros((lanes, steps), np.int64)
+    prefix_err = 0.0
+    for row, (w, g) in enumerate(zip(want, got)):
+        w_ext, g_ext = w + [cfg.eos_id], g + [cfg.eos_id]
+        k = min(len(w_ext), steps)
+        teacher[row, 1:k] = w_ext[:k - 1]
+        same = next((i for i in range(min(len(w_ext), len(g_ext)))
+                     if w_ext[i] != g_ext[i]), min(len(w_ext), len(g_ext)))
+        n = min(same + 1, steps, card_logits.shape[0])
+        prefix_err = max(prefix_err, float(
+            (card_logits[:n, row] - ref[:n, row]).abs().max()))
+    outs = []
+    with torch.inference_mode():
+        for eng in (cpu, card):
+            dev = eng.device
+            enc = byt5.encode(eng.params, cfg, ids_t.to(dev), mask_t.to(dev))
+            outs.append((enc, byt5._decoder_logits_full(
+                eng.params, cfg, torch.from_numpy(teacher).to(dev), enc,
+                mask_t.to(dev))))
+    (enc_p, log_p), (enc_k, log_k) = outs
+    enc_err = rel_err(enc_k, enc_p)
+    log_err = rel_err(log_k, log_p)
+    print(f"{tag}: {lanes} x {bucket} bytes, {steps} steps: card vs CPU "
+          f"encoder max-abs/peak {enc_err:.3e}, teacher-forced logits "
+          f"{log_err:.3e} (bound {tol:g}); the decodes' logits on their "
+          f"common tokens max-abs {prefix_err:.3e} of a peak "
+          f"{float(ref.abs().max()):.3f}", flush=True)
+    check(enc_err <= tol and log_err <= tol,
+          f"{tag}: the card's encoder or logits differ from the CPU's")
+    tie_tol = TIE_MARGIN * prefix_err
+    ties, splits = [], 0
+    for row, (w, g) in enumerate(zip(want, got)):
+        n = min(len(w) + 1, steps)
+        tie, diff = near_tie_split(w, g, ref[:n, row].numpy(), tie_tol,
+                                   cfg.eos_id, f"{tag}: row {row}")
+        ties.append(tie)
+        splits += diff is not None
+    print(f"{tag}: tokens and lengths card vs CPU: {lanes - splits} of "
+          f"{lanes} rows equal, {splits} split after a near tie; first "
+          f"near tie by row {ties}", flush=True)
+    return want
+
+
+def g2p_timing(torch, card, seed, card_name, tag):
+    """The card's batch decode of 16 words: median ms of G2P_RUNS calls on
+    varied words, words/s, tokens/s, the device kernels of one decode
+    (the encoder's apart) per decode step, host reads, and the idle
+    share of one profiled call."""
+    from phoonnx_tpu_torch.models import byt5
+
+    rng = np.random.default_rng(seed + 100)
+    batches = [byt5_words(rng, G2P_WORDS, G2P_WORD_BYTES)
+               for _ in range(G2P_RUNS + 1)]
+    card.greedy_decode_batch(batches[-1])
+    times = []
+    for batch in batches[:-1]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card.greedy_decode_batch(batch)
+        times.append((time.perf_counter() - t0) * 1e3)
+    q = quartiles(times)
+    steps, reads = card.last_decode["steps"], card.last_decode["reads"]
+    wall_us, busy_us, rows = device_profile(
+        torch, partial(card.greedy_decode_batch, batches[0]),
+        f"{tag}: one batch decode", top=0)
+    kernels = sum(r[1] for r in rows)
+    ids = torch.zeros((G2P_WORDS, 32), dtype=torch.long, device=card.device)
+    ids[:, :G2P_WORD_BYTES] = 40
+
+    def encode():
+        with torch.inference_mode():
+            byt5.encode(card.params, card.cfg, ids, (ids > 0).long())
+
+    _, _, enc_rows = device_profile(torch, encode, f"{tag}: the encoder",
+                                    top=0)
+    enc_kernels = sum(r[1] for r in enc_rows)
+    per_step = (kernels - enc_kernels) / steps
+    # the least time: the weights read once and their products (2 flops a
+    # weight a token: the encoder's over the padded input, the decoder's
+    # and the head's over the steps; the embedding is a gather) at the
+    # peak of the weights' dtype
+    p = card.params
+    elem = p["shared"]["weight"].element_size()
+    enc_w = tensor_bytes(p["encoder"]) / elem
+    dec_w = (tensor_bytes(p["decoder"]) + tensor_bytes(p.get("lm_head", {}))
+             ) / elem
+    flops = 2 * G2P_WORDS * (enc_w * ids.shape[1] + dec_w * steps)
+    least_ms, least_by = bound(
+        flops, tensor_bytes(p), PEAK_F32_FLOPS if elem == 4
+        else PEAK_BF16_FLOPS)
+    print(f"{tag}: batch of {G2P_WORDS} words x {G2P_WORD_BYTES} bytes, "
+          f"{steps} steps: ms median {q[1]:.3f} (quartiles {q[0]:.3f}-"
+          f"{q[2]:.3f}, {G2P_RUNS} runs), {G2P_WORDS / q[1] * 1e3:.1f} "
+          f"words/s, {G2P_WORDS * steps / q[1] * 1e3:.1f} tokens/s, "
+          f"{kernels} device kernels a decode ({enc_kernels} the encoder's, "
+          f"{per_step:.1f} a decode step), {reads} host reads a decode, "
+          f"device busy {busy_us / 1e3:.3f} ms of {wall_us / 1e3:.3f}, idle "
+          f"share {1 - busy_us / wall_us:.3f}; least time {least_ms:.3f} ms "
+          f"({least_by}, {flops / 1e9:.1f} GFLOP) [{card_name}]", flush=True)
+    return {"ms": q[1], "kernels_per_step": per_step, "reads": reads}
+
+
+def g2p_phase(torch, seed, card_name, widths=BYT5_SMALL, tag="g2p"):
+    """ByT5Engine at byt5-small widths with random weights (HF naming,
+    from ``seed``), float32 and bfloat16: the card against the port's CPU
+    path (encoder, teacher-forced logits, greedy decode of the word batch
+    and of the sentence), then the card's batch decode timed. Returns the
+    weights by name."""
+    from phoonnx_tpu_torch.models import byt5
+
+    t0 = time.perf_counter()
+    cfg = byt5.T5Config(**widths)
+    named = byt5.random_flat(cfg, seed)
+    print(f"{tag}: {sum(v.size for v in named.values()) / 1e6:.1f} M "
+          f"parameters ({cfg.num_encoder_layers} + {cfg.num_decoder_layers} "
+          f"layers, d_model {cfg.d_model}, d_ff {cfg.d_ff}) drawn in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    rng = np.random.default_rng(seed)
+    words = byt5_words(rng, G2P_WORDS, G2P_WORD_BYTES)
+    sentence = byt5_words(rng, 1, G2P_SENTENCE)
+    for dtype in ("float32", "bfloat16"):
+        kw = {"max_length": G2P_STEPS, "dtype": dtype}
+        card = byt5.ByT5Engine.from_flat(named, **kw)
+        cpu = byt5.ByT5Engine.from_flat(named, device="cpu", **kw)
+        check(card.device.type == "cuda", f"{tag}: the engine is not on "
+              "the GPU")
+        sub = f"{tag} {dtype}"
+        g2p_compare(torch, card, cpu, words, G2P_TOL[dtype],
+                    f"{sub} words")
+        g2p_compare(torch, card, cpu, sentence, G2P_TOL[dtype],
+                    f"{sub} sentence")
+        g2p_timing(torch, card, seed, card_name, sub)
+        del card, cpu
+    print(f"{tag}: the phase took {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return named
+
+
+def front_voice(config_path: Path, name: str, phoneme_type: str, lang: str,
+                id_map, phonemizer_model=None) -> Path:
+    """A config beside ``config_path``'s voice (the same weights) with
+    another front end."""
+    cfg = json.loads(config_path.read_text(encoding="utf-8"))
+    cfg.update(phoneme_type=phoneme_type, lang_code=lang, alphabet="ipa",
+               phoneme_id_map=id_map, num_symbols=len(id_map),
+               phonemizer_model=phonemizer_model)
+    out = config_path.parent / f"{name}.onnx.json"
+    out.write_text(json.dumps(cfg), encoding="utf-8")
+    return out
+
+
+def write_tashkeel(out_dir: Path, seed: int) -> Path:
+    """A libtashkeel-contract model of tools/bench_aux.py's geometry
+    (char and hint embeddings, a 2-layer biLSTM masked by
+    ``input_lengths``, a head over target_id_map.json; outputs the
+    argmax ids and the max logit), built with the port's GraphBuilder
+    beside the three id maps."""
+    from phoonnx_tpu_torch.onnx.builder import GraphBuilder
+    from phoonnx_tpu_torch.onnx.writer import write_onnx
+    from phoonnx_tpu_torch.thirdparty import tashkeel
+
+    out_dir.mkdir(parents=True, exist_ok=True)
+    maps = {}
+    for name in ("input_id_map", "target_id_map", "hint_id_map"):
+        shutil.copy(tashkeel.TASHKEEL_DIR / f"{name}.json", out_dir)
+        maps[name] = json.loads((tashkeel.TASHKEEL_DIR / f"{name}.json")
+                                .read_text(encoding="utf-8"))
+    rng = np.random.default_rng(seed)
+
+    def rand(shape, std):
+        return (rng.standard_normal(shape) * std).astype(np.float32)
+
+    b = GraphBuilder()
+    emb = TASHKEEL_EMB
+    emb_c = b.init("emb_c", rand((len(maps["input_id_map"]), emb), 0.1))
+    emb_d = b.init("emb_d", rand((len(maps["hint_id_map"]), emb), 0.1))
+    e = b.add(b.n("Gather", [emb_c, "char_inputs"], axis=0),
+              b.n("Gather", [emb_d, "diac_inputs"], axis=0))  # [1, T, E]
+    x = b.transpose(e, [1, 0, 2])  # [T, 1, E]
+    hidden, inp = TASHKEEL_HIDDEN, emb
+    for layer in range(TASHKEEL_LAYERS):
+        w = b.init(f"w{layer}", rand((2, 4 * hidden, inp), 0.05))
+        r = b.init(f"r{layer}", rand((2, 4 * hidden, hidden), 0.05))
+        y = b.n("LSTM", [x, w, r, "", "input_lengths"], n_out=3,
+                hidden_size=hidden, direction="bidirectional")[0]
+        x = b.reshape(b.transpose(y, [0, 2, 1, 3]), [0, 1, -1])  # [T,1,2H]
+        inp = 2 * hidden
+    n_cls = len(maps["target_id_map"])
+    scores = b.squeeze(b.matmul(x, b.init("proj", rand((inp, n_cls), 1.0))),
+                       [1])  # [T, C]
+    target = b.unsqueeze(b.n("ArgMax", [scores], axis=1, keepdims=0), [0])
+    logits = b.unsqueeze(b.reduce_max(scores, [1], keepdims=0), [0])
+    write_onnx(str(out_dir / "model.onnx"), b.initializers,
+               inputs=["char_inputs", "diac_inputs", "input_lengths"],
+               outputs=[target, logits], nodes=b.nodes)
+    return out_dir
+
+
+def front_launches(torch, voice, texts, seed, tag, path):
+    """Synthesize ``texts`` with the voice on the card, A, B and C counted
+    from 0; each must launch. Returns (launches, audio of each text)."""
+    from phoonnx_tpu_torch import SynthesisConfig
+
+    kernels = serving_kernels()
+    reset_launches(kernels)
+    audio = []
+    for i, text in enumerate(texts):
+        chunks = list(voice.synthesize(text, SynthesisConfig(
+            seed=seed + i, noise_scale=0.0, noise_w_scale=0.0,
+            normalize_audio=False)))
+        check(len(chunks) > 0, f"{tag}: no audio for {text!r}")
+        wave = np.concatenate([c.audio_float_array for c in chunks])
+        hop = voice.engine.hp.total_upsample
+        check(bool(np.isfinite(wave).all()) and len(wave) % hop == 0,
+              f"{tag}: {len(wave)} samples, finite "
+              f"{bool(np.isfinite(wave).all())}")
+        audio.append(wave)
+    return read_launches(kernels, tag, path), audio
+
+
+def runner_places(stats, tag, what):
+    """A runner's run: every host value is a small integer (shape
+    arithmetic)."""
+    bad = [h for h in stats.host_outputs
+           if np.dtype(h[2]).kind not in "biu" or h[3] > 8]
+    print(f"{tag}: {what}: {stats.nodes} nodes, outputs by place "
+          f"{dict(stats.outputs)}, host nodes {dict(stats.host_nodes)}, "
+          f"host reads {dict(stats.reads)}", flush=True)
+    check(not bad, f"{tag}: {what}: values beyond shape arithmetic on the "
+          f"host: {bad[:5]}")
+
+
+def arabic_phase(torch, model_path, config_path, seed, root: Path,
+                 tag="arabic"):
+    """A mantoq voice (lang "ar") on the card with a tashkeel model of
+    tools/bench_aux.py's geometry on its phonemizer: the diacritized text
+    and the ids card vs CPU for three sentences (one with digits), the
+    runner's placement and device kernels, A, B and C launched, and the
+    sentence with digits within PATH_TOL of the CPU port's audio."""
+    from phoonnx_tpu_torch import SynthesisConfig, TTSVoice
+    from phoonnx_tpu_torch.thirdparty.tashkeel import TashkeelDiacritizer
+
+    t_start = time.perf_counter()
+    model_dir = write_tashkeel(root / "build" / "chip_smoke" / "tashkeel",
+                               seed)
+    cfg_path = front_voice(config_path, "arabic", "mantoq", "ar", ASCII_IDS)
+    voices = {}
+    for dev in (None, "cpu"):
+        v = TTSVoice.load(str(model_path), str(cfg_path), device=dev)
+        v.phonemizer._tashkeel = TashkeelDiacritizer(model_dir, device=dev)
+        voices["card" if dev is None else "cpu"] = v
+    card, cpu = voices["card"], voices["cpu"]
+    check(card.phonemizer.tashkeel.device.type == "cuda",
+          f"{tag}: the diacritizer is not on the GPU")
+    for text in ARABIC_TEXTS:
+        got = card.phonemizer.add_diacritics(text, "ar")
+        want = cpu.phonemizer.add_diacritics(text, "ar")
+        ids_k = [card.phonemes_to_ids(p) for p in card.phonemize(got)]
+        ids_p = [cpu.phonemes_to_ids(p) for p in cpu.phonemize(want)]
+        runner_places(card.phonemizer.tashkeel._runner.last_run, tag,
+                      f"{len(text)} chars")
+        d = card.phonemizer.tashkeel
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            d.diacritize(text, card.phonemizer.taskeen_threshold)
+            times.append((time.perf_counter() - t0) * 1e3)
+        wall_us, busy_us, rows = device_profile(
+            torch, partial(d.diacritize, text,
+                           card.phonemizer.taskeen_threshold),
+            f"{tag}: one diacritization", top=0)
+        kernels = sum(r[1] for r in rows)
+        print(f"{tag}: {text!r}: diacritized {got!r}; equal to the CPU's "
+              f"{got == want}, ids {sum(map(len, ids_k))} equal "
+              f"{ids_k == ids_p}; diacritizer ms median "
+              f"{statistics.median(times):.3f} (5 runs), {kernels} device "
+              f"kernels, busy {busy_us / 1e3:.3f} ms of "
+              f"{wall_us / 1e3:.3f}, idle share "
+              f"{1 - busy_us / wall_us:.3f}", flush=True)
+        check(got == want and ids_k == ids_p,
+              f"{tag}: {text!r}: the card's diacritics or ids differ")
+        check(got != text and kernels > 0,
+              f"{tag}: {text!r}: no diacritics or no device kernel")
+    launches, audio = front_launches(torch, card, ARABIC_TEXTS, seed, tag,
+                                     "Arabic (mantoq, tashkeel) path")
+    ref = np.concatenate([c.audio_float_array for c in cpu.synthesize(
+        ARABIC_TEXTS[2], SynthesisConfig(
+            seed=seed + 2, noise_scale=0.0, noise_w_scale=0.0,
+            normalize_audio=False))])
+    check(ref.shape == audio[2].shape,
+          f"{tag}: {audio[2].shape} samples on the card, {ref.shape} on "
+          "the CPU")
+    err = float(np.abs(audio[2] - ref).max())
+    print(f"{tag}: {ARABIC_TEXTS[2]!r}: card vs CPU waveform max-abs "
+          f"{err:.3e} (bound {PATH_TOL:g}); the phase took "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
+    check(err <= PATH_TOL, f"{tag}: the waveform differs by {err:.3e}")
+    return launches
+
+
+def korean_phase(torch, model_path, config_path, seed, tag="korean"):
+    """A KoG2P voice (IPA) on the card: one request, its ids equal to the
+    CPU front end's, A, B and C launched."""
+    from phoonnx_tpu_torch import TTSVoice
+    from phoonnx_tpu_torch.config import Alphabet, get_phonemizer
+
+    ipa = get_phonemizer("kog2p", Alphabet.IPA).phonemize(KOREAN_TEXT, "ko")
+    id_map = dict(ASCII_IDS)
+    for c in sorted({c for sent in ipa for c in sent}):
+        id_map.setdefault(c, len(id_map))
+    cfg_path = front_voice(config_path, "korean", "kog2p", "ko", id_map)
+    card = TTSVoice.load(str(model_path), str(cfg_path))
+    host = TTSVoice(engine=None, config=card.config)  # the front end alone
+    ids_k = [card.phonemes_to_ids(p) for p in card.phonemize(KOREAN_TEXT)]
+    ids_p = [host.phonemes_to_ids(p) for p in host.phonemize(KOREAN_TEXT)]
+    print(f"{tag}: {KOREAN_TEXT!r} -> {''.join(ipa[0])!r}, "
+          f"{sum(map(len, ids_k))} ids, equal to the CPU's "
+          f"{ids_k == ids_p}", flush=True)
+    check(ids_k == ids_p and sum(map(len, ids_k)) > 20,
+          f"{tag}: the ids differ or are too few")
+    return front_launches(torch, card, [KOREAN_TEXT], seed, tag,
+                          "Korean (kog2p) path")[0]
+
+
+# tests/test_phonikud_model.py's model: per-character Gather tables over
+# an 8-entry vocabulary held in the ONNX metadata
+HEBREW_VOCAB = {"[PAD]": 0, "[UNK]": 1, "[CLS]": 2, "[SEP]": 3,
+                "א": 4, "ב": 5, "ש": 6, "ו": 7}
+HEBREW_TEXTS = ("אבשו", "abc א! 12", "שלום עולם\nבבב",
+                "אב" * 150 + " ו")
+
+
+def write_phonikud(out_dir: Path) -> Path:
+    """tests/test_phonikud_model.py's Gather-table model (ALEF patah and
+    hatama, BET dagesh+patah, SHIN sin dot, sheva and vocal shva, VAV
+    mater lectionis)."""
+    from phoonnx_tpu_torch.onnx.writer import write_onnx
+    from phoonnx_tpu_torch.thirdparty.phonikud import NIKUD_CLASSES
+
+    def one_hot(rows, n_cls):
+        table = np.full((len(rows), n_cls), -5.0, np.float32)
+        table[np.arange(len(rows)), rows] = 5.0
+        return table
+
+    v = HEBREW_VOCAB
+    nikud = [0] * len(v)
+    nikud[v["א"]] = NIKUD_CLASSES.index(chr(0x05B7))
+    nikud[v["ב"]] = NIKUD_CLASSES.index("ּ" + chr(0x05B7))
+    nikud[v["ש"]] = NIKUD_CLASSES.index(chr(0x05B0))
+    nikud[v["ו"]] = 1  # mater lectionis
+    shin = [0] * len(v)
+    shin[v["ש"]] = 1
+    add = np.full((len(v), 3), -5.0, np.float32)
+    add[v["א"], 0] = add[v["ש"], 1] = 5.0
+    out_dir.mkdir(parents=True, exist_ok=True)
+    path = out_dir / "phonikud.onnx"
+    write_onnx(str(path), {"nikud_table": one_hot(nikud, len(NIKUD_CLASSES)),
+                           "shin_table": one_hot(shin, 2), "add_table": add},
+               metadata={"vocab": json.dumps(v)},
+               inputs=["input_ids", "attention_mask"],
+               outputs=["nikud_logits", "shin_logits", "additional_logits"],
+               nodes=[("Gather", ["nikud_table", "input_ids"],
+                       ["nikud_logits"]),
+                      ("Gather", ["shin_table", "input_ids"],
+                       ["shin_logits"]),
+                      ("Gather", ["add_table", "input_ids"],
+                       ["additional_logits"])])
+    return path
+
+
+def hebrew_phase(torch, root: Path, tag="hebrew"):
+    """PhonikudDiacritizer on the card with the Gather-table model: each
+    text's output equal to the CPU's, device kernels > 0, and
+    ``_download`` never reached."""
+    from phoonnx_tpu_torch.thirdparty.phonikud import PhonikudDiacritizer
+
+    path = write_phonikud(root / "build" / "chip_smoke" / "phonikud")
+
+    def refuse(self):
+        fail(f"{tag}: PhonikudDiacritizer._download was reached")
+
+    kept = PhonikudDiacritizer._download
+    PhonikudDiacritizer._download = refuse
+    try:
+        card = PhonikudDiacritizer(model_path=str(path))
+        cpu = PhonikudDiacritizer(model_path=str(path), device="cpu")
+        for text in HEBREW_TEXTS:
+            got, want = card.diacritize(text), cpu.diacritize(text)
+            check(got == want, f"{tag}: {text[:20]!r}: card {got[:40]!r} "
+                  f"vs CPU {want[:40]!r}")
+        check(card._runner.device.type == "cuda",
+              f"{tag}: the runner is not on the GPU")
+        runner_places(card._runner.last_run, tag, "the last text")
+        _, busy_us, rows = device_profile(
+            torch, partial(card.diacritize, HEBREW_TEXTS[0]),
+            f"{tag}: one diacritization", top=0)
+        kernels = sum(r[1] for r in rows)
+        print(f"{tag}: {len(HEBREW_TEXTS)} texts equal to the CPU's, e.g. "
+              f"{HEBREW_TEXTS[0]!r} -> {card.diacritize(HEBREW_TEXTS[0])!r}"
+              f"; {kernels} device kernels a call", flush=True)
+        check(kernels > 0, f"{tag}: no device kernel")
+    finally:
+        PhonikudDiacritizer._download = kept
+
+
+def byt5_voice_phase(torch, model_path, config_path, named, seed, root: Path,
+                     tag="byt5 voice"):
+    """The medium voice with phoneme_type "byt5" over an initializers-only
+    ONNX of the g2p weights: TTSVoice.load -> synthesize with the G2P on
+    the card, its ids equal to the CPU's, A, B and C launched, and the
+    share of a request spent in the G2P."""
+    from phoonnx_tpu_torch import SynthesisConfig, TTSVoice
+    from phoonnx_tpu_torch.models import byt5
+    from phoonnx_tpu_torch.onnx.writer import write_onnx
+    from phoonnx_tpu_torch.phonemizers.mul import ByT5Phonemizer
+
+    t_start = time.perf_counter()
+    # 20 bytes with the language tag: input bucket 32, a 128-step budget
+    text = "hello there"
+    g2p_path = root / "build" / "chip_smoke" / "g2p.onnx"
+    cfg_path = front_voice(config_path, "byt5", "byt5", "en-US", ASCII_IDS,
+                           str(g2p_path))
+
+    def load():
+        write_onnx(str(g2p_path), named)
+        voice = TTSVoice.load(str(model_path), str(cfg_path))
+        ids = [voice.phonemes_to_ids(p) for p in voice.phonemize(text)]
+        return voice, ids
+
+    voice, ids = load()
+    if sum(map(len, ids)) < 20:
+        # random weights emit bytes that are rarely printable UTF-8: scale
+        # lm_head's rows of the map's letters (byte + 3) so the G2P
+        # spells some
+        print(f"{tag}: {sum(map(len, ids))} ids from random weights; "
+              "lm_head biased toward the map's letters", flush=True)
+        named = dict(named)
+        head = named["lm_head.weight"].copy()
+        head[[ord(c) + 3 for c in "abcdefghijklmnopqrstuvwxyz"]] *= 3.0
+        named["lm_head.weight"] = head
+        voice, ids = load()
+    engine = voice.phonemizer.engine
+    check(engine.device.type == "cuda", f"{tag}: the G2P is not on the GPU")
+    cpu = ByT5Phonemizer(str(g2p_path))
+    cpu.device = "cpu"
+    cpu._engine = byt5.ByT5Engine.from_flat(named, device="cpu")
+    host = TTSVoice(engine=None, config=voice.config, phonemizer=cpu)
+    want = [host.phonemes_to_ids(p) for p in host.phonemize(text)]
+    print(f"{tag}: {text!r} -> {sum(map(len, ids))} ids, equal to the "
+          f"CPU's {ids == want}; G2P {engine.cfg.num_encoder_layers} + "
+          f"{engine.cfg.num_decoder_layers} layers, {engine.last_decode}",
+          flush=True)
+    check(ids == want and sum(map(len, ids)) >= 20,
+          f"{tag}: the ids differ from the CPU's or are too few")
+    launches, _ = front_launches(torch, voice, [text], seed, tag,
+                                 "ByT5 G2P voice path")
+    # the G2P's share of a request: its decodes timed inside synthesize
+    # (each returns host lists, so it ends synchronised)
+    cfg = SynthesisConfig(seed=seed, noise_scale=0.0, noise_w_scale=0.0)
+    decode = engine.greedy_decode_batch
+    inside = []
+
+    def timed_decode(batch_ids):
+        t0 = time.perf_counter()
+        out = decode(batch_ids)
+        inside[-1] += time.perf_counter() - t0
+        return out
+
+    engine.greedy_decode_batch = timed_decode
+    shares, total_ms = [], []
+    try:
+        for _ in range(5):
+            inside.append(0.0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            list(voice.synthesize(text, cfg))
+            total = time.perf_counter() - t0
+            total_ms.append(total * 1e3)
+            shares.append(inside[-1] / total)
+    finally:
+        del engine.greedy_decode_batch
+    print(f"{tag}: request ms median {statistics.median(total_ms):.3f}, "
+          f"the G2P's share {statistics.median(shares):.3f} (5 runs); the "
+          f"phase took {time.perf_counter() - t_start:.1f} s", flush=True)
+    return launches
+
+
+def frontend_phase(torch, model_path, config_path, seed, root: Path,
+                   card_name):
+    """The text front end on the card: the ByT5 G2P at byt5-small widths,
+    an Arabic voice with its diacritizer, a Korean voice, the Hebrew
+    diacritizer, and a voice whose G2P is the ByT5 model. Returns the
+    launches of A, B and C on the voices' paths."""
+    t_start = time.perf_counter()
+    named = g2p_phase(torch, seed, card_name)
+    memory_line(torch, "the G2P phase")
+    paths = {
+        "Arabic (mantoq, tashkeel) path": arabic_phase(
+            torch, model_path, config_path, seed, root),
+        "Korean (kog2p) path": korean_phase(torch, model_path, config_path,
+                                            seed),
+    }
+    hebrew_phase(torch, root)
+    paths["ByT5 G2P voice path"] = byt5_voice_phase(
+        torch, model_path, config_path, named, seed, root)
+    memory_line(torch, "the front end's phases")
+    print(f"frontend: the phases took {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+    return paths
+
+
 def training_dataset(torch, root: Path, seed: int) -> Path:
     """The synthetic dataset of the training phases: 45 utterances, 5 held
     out for tests (run_training's default), 4 validation, 36 train; its
@@ -3677,6 +4317,12 @@ def main() -> None:
                ROOT)
     memory_line(torch, "the foreign voices")
     precision_phase(torch, (model_path, config_path), args.seed + 15)
+
+    # the text front end on the card (the ByT5 G2P, the diacritizers, the
+    # bundled G2P), feeding kernels A, B and C
+    paths.update(frontend_phase(torch, model_path, config_path,
+                                args.seed + 16, ROOT, card))
+    memory_line(torch, "the front end")
 
     # training: kernel D, at medium and on the MB-iSTFT decoder
     data = training_dataset(torch, ROOT, args.seed)

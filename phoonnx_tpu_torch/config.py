@@ -393,26 +393,46 @@ def get_phonemizer(
     alphabet: Alphabet = Alphabet.IPA,
     model: Optional[str] = None,
 ) -> "Phonemizer":
-    """Instantiate the phonemizer for a voice (reference: config.py:392-465).
-
-    Only the phonemizers that need no external G2P package are ported
-    (RAW, UNICODE, GRAPHEMES); every other type raises
-    ``NotImplementedError``.
-    """
+    """Instantiate the phonemizer for a voice (reference: config.py:392-465)."""
     from phoonnx_tpu_torch import phonemizers as P
 
     factories = {
+        PhonemeType.ESPEAK: lambda: P.EspeakPhonemizer(),
+        PhonemeType.BYT5: lambda: P.ByT5Phonemizer(model),
+        PhonemeType.CHARSIU: lambda: P.CharsiuPhonemizer(model),
+        PhonemeType.GRUUT: lambda: P.GruutPhonemizer(),
+        PhonemeType.GORUUT: lambda: P.GoruutPhonemizer(),
+        PhonemeType.EPITRAN: lambda: P.EpitranPhonemizer(),
+        PhonemeType.MISAKI: lambda: P.MisakiPhonemizer(),
+        PhonemeType.TRANSPHONE: lambda: P.TransphonePhonemizer(),
+        PhonemeType.MIRANDESE: lambda: P.MirandesePhonemizer(),
+        PhonemeType.DEEPPHONEMIZER: lambda: P.DeepPhonemizer(model),
+        PhonemeType.OPENPHONEMIZER: lambda: P.OpenPhonemizer(),
+        PhonemeType.G2PEN: lambda: P.G2PEnPhonemizer(alphabet=alphabet),
+        PhonemeType.OPENJTALK: lambda: P.OpenJTaklPhonemizer(alphabet=alphabet),
+        PhonemeType.PYKAKASI: lambda: P.PyKakasiPhonemizer(alphabet=alphabet),
+        PhonemeType.CUTLET: lambda: P.CutletPhonemizer(alphabet=alphabet),
+        PhonemeType.G2PFA: lambda: P.PersianPhonemizer(alphabet=alphabet),
+        PhonemeType.PHONIKUD: lambda: P.PhonikudPhonemizer(),
+        PhonemeType.MANTOQ: lambda: P.MantoqPhonemizer(),
+        PhonemeType.VIPHONEME: lambda: P.VIPhonemePhonemizer(),
+        PhonemeType.KOG2PK: lambda: P.KoG2PPhonemizer(alphabet=alphabet),
+        PhonemeType.G2PK: lambda: P.G2PKPhonemizer(alphabet=alphabet),
+        PhonemeType.PYPINYIN: lambda: P.PypinyinPhonemizer(alphabet=alphabet),
+        PhonemeType.XPINYIN: lambda: P.XpinyinPhonemizer(alphabet=alphabet),
+        PhonemeType.JIEBA: lambda: P.JiebaPhonemizer(),
+        PhonemeType.G2PC: lambda: P.G2pCPhonemizer(alphabet=alphabet),
+        PhonemeType.G2PM: lambda: P.G2pMPhonemizer(alphabet=alphabet),
+        PhonemeType.COTOVIA: lambda: P.CotoviaPhonemizer(),
         PhonemeType.UNICODE: lambda: P.UnicodeCodepointPhonemizer(),
         PhonemeType.GRAPHEMES: lambda: P.GraphemePhonemizer(),
         PhonemeType.RAW: lambda: P.RawPhonemes(),
     }
-    if phoneme_type not in factories:
-        try:
-            PhonemeType(phoneme_type)
-        except ValueError:
-            raise ValueError("invalid phonemizer") from None
-        raise NotImplementedError(
-            f"phonemizer {phoneme_type!r} is not ported to phoonnx_tpu_torch "
-            "yet (ROADMAP.md, port queue: 'Other phonemizers and "
-            "OnnxFallbackEngine')")
-    return factories[phoneme_type]()
+    try:
+        factory = factories[phoneme_type]
+    except KeyError:
+        raise ValueError("invalid phonemizer") from None
+    # call OUTSIDE the try: a KeyError raised inside a phonemizer
+    # constructor (missing G2P data-table entry etc.) must surface as
+    # itself, not masked as "invalid phonemizer" with the chain cut
+    return factory()

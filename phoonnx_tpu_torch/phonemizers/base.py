@@ -3,7 +3,8 @@
 Rebuild of the reference front-end contract (phoonnx/phonemizers/base.py):
 ``phonemize()`` = normalize -> sentence/clause chunking -> strip punctuation
 -> per-chunk ``phonemize_string`` -> espeak language-switch flag removal,
-grouped per sentence. Host-side string work only.
+grouped per sentence. Host-side string work; the diacritizers' models
+run on :attr:`BasePhonemizer.device`.
 
 Documented divergences from the reference:
 
@@ -20,6 +21,10 @@ from typing import List, Literal, Optional, Tuple
 from phoonnx_tpu_torch.config import Alphabet
 from phoonnx_tpu_torch.langtags import match_lang as _match_lang
 from phoonnx_tpu_torch.sentences import sentence_tokenize
+# importable from here for parity with the reference's base.py namespace
+# (instances are still created lazily via the properties below)
+from phoonnx_tpu_torch.thirdparty.phonikud import PhonikudDiacritizer  # noqa: F401
+from phoonnx_tpu_torch.thirdparty.tashkeel import TashkeelDiacritizer  # noqa: F401
 from phoonnx_tpu_torch.util import normalize
 
 # (substring, terminator, end_of_sentence)
@@ -32,6 +37,11 @@ _PUNCT_PATTERN = re.compile(r"[" + re.escape(string.punctuation) + r"]")
 
 
 class BasePhonemizer(metaclass=abc.ABCMeta):
+    # where the front end's models run (the ByT5 G2P, the tashkeel and
+    # phonikud diacritizers): None means the GPU, as every entry point of
+    # the port; TTSVoice.load sets it to the voice's device
+    device = None
+
     def __init__(self, alphabet: Alphabet = Alphabet.UNICODE,
                  taskeen_threshold: Optional[float] = 0.8):
         self.alphabet = alphabet
@@ -41,17 +51,19 @@ class BasePhonemizer(metaclass=abc.ABCMeta):
 
     @property
     def phonikud(self):
-        raise NotImplementedError(
-            "Hebrew diacritics are not ported to phoonnx_tpu_torch yet "
-            "(ROADMAP.md, port queue: 'Other phonemizers and "
-            "OnnxFallbackEngine')")
+        if self._phonikud is None:
+            from phoonnx_tpu_torch.thirdparty.phonikud import PhonikudDiacritizer
+
+            self._phonikud = PhonikudDiacritizer(device=self.device)
+        return self._phonikud
 
     @property
     def tashkeel(self):
-        raise NotImplementedError(
-            "Arabic diacritics are not ported to phoonnx_tpu_torch yet "
-            "(ROADMAP.md, port queue: 'Other phonemizers and "
-            "OnnxFallbackEngine')")
+        if self._tashkeel is None:
+            from phoonnx_tpu_torch.thirdparty.tashkeel import TashkeelDiacritizer
+
+            self._tashkeel = TashkeelDiacritizer(device=self.device)
+        return self._tashkeel
 
     @abc.abstractmethod
     def phonemize_string(self, text: str, lang: str) -> str:

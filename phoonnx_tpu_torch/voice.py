@@ -152,7 +152,9 @@ class TTSVoice:
         front-end settings. Weights import by name into the parameter tree.
 
         device: None means the GPU, and raises RuntimeError when there is
-        none; ``"cpu"`` runs the plain PyTorch path. ``dtype``:
+        none; ``"cpu"`` runs the plain PyTorch path. The phonemizer's
+        models (the ByT5/Charsiu G2P, the tashkeel and phonikud
+        diacritizers) run on the same device. ``dtype``:
         ``"float32"`` or ``"bfloat16"`` (every floating weight cast, the
         kernels' bf16 builds, as the JAX package serves);
         ``matmul_precision``: ``None``/``"default"``, ``"high"`` or
@@ -236,11 +238,15 @@ class TTSVoice:
                 "engine)", exc, device)
             engine = OnnxFallbackEngine(onnx_model, config.sample_rate,
                                         device=device)
-            return TTSVoice(engine=engine, config=config)
-        # the weights imported: from here on, errors are genuine
-        engine = VitsEngine(params, hp, dtype=dtype, device=device,
-                            matmul_precision=matmul_precision)
-        return TTSVoice(engine=engine, config=config)
+        else:
+            # the weights imported: from here on, errors are genuine
+            engine = VitsEngine(params, hp, dtype=dtype, device=device,
+                                matmul_precision=matmul_precision)
+        voice = TTSVoice(engine=engine, config=config)
+        # the front end's models (G2P, diacritizers) run on the voice's
+        # device; the phonemizer builds them lazily, after this
+        voice.phonemizer.device = device
+        return voice
 
     # ------------------------------------------------------------------
     # Front-end

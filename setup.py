@@ -74,6 +74,11 @@ setup(
         "phoonnx_tpu_torch": [
             "_ipa_table.json",
             "locale/*/phonetic_spellings.txt",
+            "thirdparty/_arpa2ipa.json",
+            "thirdparty/ko_tables/*",
+            "thirdparty/kog2p/rulebook.txt",
+            "thirdparty/tashkeel/*.json",
+            "thirdparty/mantoq/ar_number_words.json",
             "csrc/*.cu",
             "csrc/*.cuh",
         ],

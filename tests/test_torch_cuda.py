@@ -1018,3 +1018,29 @@ def test_precision_is_per_engine(device, tmp_path):
     p = model.random_params(hp, torch.Generator().manual_seed(14))
     files = chip_smoke.write_voice(torch, p, hp, tmp_path)
     chip_smoke.precision_phase(torch, files, 14, tag="card precision")
+
+
+def test_g2p_on_the_card(device):
+    """``chip_smoke.g2p_phase`` at byt5-small's widths with 2 + 1 layers:
+    the encoder, the teacher-forced logits and greedy decodes (16 words,
+    one sentence) on the card against the CPU, float32 and bfloat16."""
+    import chip_smoke
+
+    widths = dict(chip_smoke.BYT5_SMALL, num_encoder_layers=2,
+                  num_decoder_layers=1)
+    chip_smoke.g2p_phase(torch, 16, chip_smoke.card_line(), widths=widths,
+                         tag="card g2p")
+
+
+def test_arabic_voice_on_the_card(device, tmp_path):
+    """``chip_smoke.arabic_phase`` on a two-layer medium voice: the
+    tashkeel runner on the card, diacritics and ids equal to the CPU's,
+    kernels A, B and C launched, the waveform within PATH_TOL."""
+    import chip_smoke
+
+    hp = model.VitsHParams.preset("medium", n_layers=2)
+    p = model.random_params(hp, torch.Generator().manual_seed(15))
+    files = chip_smoke.write_voice(torch, p, hp, tmp_path)
+    launches = chip_smoke.arabic_phase(torch, *files, 15, tmp_path,
+                                       tag="card arabic")
+    assert all(n > 0 for n in launches.values()), launches

@@ -2,11 +2,13 @@
 
 ``phoonnx_tpu_torch`` imports nothing of ``phoonnx_tpu``: it keeps its own
 copies of the JAX-free front-end, ONNX and training-data modules. Each copy must equal
-its original once ``phoonnx_tpu.`` is rewritten to ``phoonnx_tpu_torch.``.
-``config.py`` and ``phonemizers/base.py`` are trimmed copies, checked on
-the classes and functions they keep; ``onnx/executor.py`` is the
-original but for its two convolution handlers, which call torch where
-the original calls JAX.
+its original once ``phoonnx_tpu.`` (and ``from phoonnx_tpu import``) is
+rewritten to ``phoonnx_tpu_torch``. ``phonemizers/base.py``,
+``phonemizers/mul.py``, the tashkeel and phonikud diacritizers and
+``onnx/aux_compile.py`` are trimmed copies, checked member by member with
+the members that differ named; ``onnx/executor.py`` is the original but
+for its two convolution handlers, which call torch where the original
+calls JAX.
 """
 
 import ast
@@ -21,12 +23,27 @@ PORT_PKG = ROOT / "phoonnx_tpu_torch"
 VERBATIM = ["config.py", "phoneme_ids.py", "util.py", "numbers.py",
             "dates.py", "sentences.py", "langtags.py", "onnx/wire.py",
             "onnx/reader.py", "onnx/writer.py", "onnx/dequant.py",
-            "onnx/builder.py", "onnx/vits_graph.py", "train/dataset.py"]
-VERBATIM.remove("config.py")  # trimmed: see test_config_copy
+            "onnx/builder.py", "onnx/vits_graph.py", "train/dataset.py",
+            "thirdparty/__init__.py", "thirdparty/bw2ipa.py",
+            "thirdparty/arpa2ipa.py", "thirdparty/zh_num.py",
+            "thirdparty/hangul2ipa.py", "thirdparty/mantoq/__init__.py",
+            "thirdparty/mantoq/num2words.py",
+            "thirdparty/mantoq/phonetise.py", "thirdparty/kog2p/__init__.py",
+            "phonemizers/__init__.py", "phonemizers/ar.py",
+            "phonemizers/ko.py", "phonemizers/he.py", "phonemizers/fa.py",
+            "phonemizers/vi.py", "phonemizers/ja.py", "phonemizers/zh.py",
+            "phonemizers/en.py", "phonemizers/gl.py", "phonemizers/mwl.py"]
+
+# data files of the copies: the ipa table, the locales and the bundled
+# front ends' tables
+DATA_GLOBS = ["_ipa_table.json", "locale/**/*", "thirdparty/*.json",
+              "thirdparty/ko_tables/*", "thirdparty/kog2p/rulebook.txt",
+              "thirdparty/mantoq/*.json", "thirdparty/tashkeel/*.json"]
 
 
 def _rewrite(text: str) -> str:
-    return text.replace("phoonnx_tpu.", "phoonnx_tpu_torch.")
+    return text.replace("phoonnx_tpu.", "phoonnx_tpu_torch.").replace(
+        "from phoonnx_tpu import", "from phoonnx_tpu_torch import")
 
 
 def _top_level(path: Path) -> dict:
@@ -49,6 +66,39 @@ def _methods(class_src: str) -> dict:
             if isinstance(m, ast.FunctionDef)}
 
 
+def _class_attrs(class_src: str) -> dict:
+    """Source of each class-level assignment, by name."""
+    node = ast.parse(class_src).body[0]
+    return {target.id: ast.get_source_segment(class_src, m)
+            for m in node.body if isinstance(m, ast.Assign)
+            for target in m.targets if isinstance(target, ast.Name)}
+
+
+def _same_but(rel: str, differ: dict, added=()):
+    """Check a trimmed copy: every top-level member equals the original's
+    but the classes of ``differ`` (class name -> the methods that
+    differ); their other methods and their class attributes are the
+    original's, but the class attributes named in ``added``, which only
+    the copy has. Returns (original, copy) members by name."""
+    original = _top_level(JAX_PKG / rel)
+    copy = _top_level(PORT_PKG / rel)
+    assert set(copy) == set(original), set(copy) ^ set(original)
+    for name, src in original.items():
+        if name not in differ:
+            assert copy[name] == _rewrite(src), (rel, name)
+            continue
+        orig_m, copy_m = _methods(src), _methods(copy[name])
+        assert set(copy_m) == set(orig_m), (rel, name)
+        for m, m_src in orig_m.items():
+            same = copy_m[m] == _rewrite(m_src)
+            assert same == (m not in differ[name]), (rel, name, m)
+        attrs = _class_attrs(copy[name])
+        assert set(added) <= set(attrs), (rel, name, added)
+        assert {k: v for k, v in attrs.items() if k not in added} == {
+            k: _rewrite(v) for k, v in _class_attrs(src).items()}
+    return original, copy
+
+
 @pytest.mark.parametrize("rel", VERBATIM)
 def test_verbatim_copy(rel):
     original = (JAX_PKG / rel).read_text(encoding="utf-8")
@@ -57,23 +107,22 @@ def test_verbatim_copy(rel):
 
 
 def test_data_files_copied():
-    pairs = [Path("_ipa_table.json")] + sorted(
-        p.relative_to(JAX_PKG) for p in (JAX_PKG / "locale").rglob("*")
-        if p.is_file())
-    assert len(pairs) > 1
+    pairs = sorted(p.relative_to(JAX_PKG) for g in DATA_GLOBS
+                   for p in JAX_PKG.glob(g) if p.is_file()
+                   and "__pycache__" not in p.parts)
+    assert len(pairs) >= 19
     for rel in pairs:
         assert (PORT_PKG / rel).read_bytes() == (JAX_PKG / rel).read_bytes(), rel
 
 
 def test_config_copy():
-    """Everything but ``get_phonemizer`` is verbatim; the port keeps the
-    RAW, UNICODE and GRAPHEMES factories and refuses the rest."""
+    """Verbatim since the port has every phonemizer: ``get_phonemizer``
+    builds the JAX package's full factory table."""
     original = _top_level(JAX_PKG / "config.py")
     copy = _top_level(PORT_PKG / "config.py")
     assert set(copy) == set(original)
     for name, src in original.items():
-        if name != "get_phonemizer":
-            assert copy[name] == _rewrite(src), name
+        assert copy[name] == _rewrite(src), name
 
 
 def test_executor_copy():
@@ -104,28 +153,60 @@ def test_ported_phonemizers_match(kind):
 
 @pytest.mark.parametrize("kind", ["espeak", "gruut", "byt5", "misaki"])
 def test_other_phonemizers_raise(kind):
+    """The port builds what JAX builds for these types (a wrapper whose
+    package is absent raises at construction in both); an unknown name
+    is a ValueError."""
+    from phoonnx_tpu.config import get_phonemizer as jax_get
     from phoonnx_tpu_torch.config import get_phonemizer
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        get_phonemizer(kind)
+    def built(get):
+        try:
+            return type(get(kind)).__name__
+        except Exception as exc:
+            return type(exc)
+
+    assert built(get_phonemizer) == built(jax_get)
     with pytest.raises(ValueError):
         get_phonemizer("no-such-phonemizer")
 
 
 def test_phonemizer_base_copy():
-    """The kept classes are verbatim; only the he/ar diacritizer
-    properties of BasePhonemizer are refused for now."""
-    original = _top_level(JAX_PKG / "phonemizers" / "base.py")
-    copy = _top_level(PORT_PKG / "phonemizers" / "base.py")
-    kept = ["RawPhonemes", "GraphemePhonemizer", "UnicodeCodepointPhonemizer"]
-    for name in kept + ["_LANG_SWITCH_FLAG", "_PUNCT_PATTERN"]:
+    """The kept classes are verbatim; BasePhonemizer adds one class
+    attribute, ``device``, which its tashkeel and phonikud properties
+    pass to the diacritizers they build."""
+    original, copy = _same_but("phonemizers/base.py", {
+        "BasePhonemizer": ("phonikud", "tashkeel")}, added=("device",))
+    orig_m = _methods(original["BasePhonemizer"])
+    copy_m = _methods(copy["BasePhonemizer"])
+    for name in ("phonikud", "tashkeel"):
+        assert copy_m[name] == _rewrite(orig_m[name]).replace(
+            "Diacritizer()", "Diacritizer(device=self.device)"), name
+
+
+@pytest.mark.parametrize("rel,differ", [
+    ("phonemizers/mul.py", {"ByT5Phonemizer": ("engine",)}),
+    ("thirdparty/tashkeel/__init__.py",
+     {"TashkeelDiacritizer": ("__init__", "_get_executor", "_infer")}),
+    ("thirdparty/phonikud/__init__.py",
+     {"PhonikudDiacritizer": ("__init__", "_load", "_execute")}),
+], ids=["mul", "tashkeel", "phonikud"])
+def test_trimmed_copy(rel, differ):
+    """Only the members that build or run a model differ: the engine or
+    the runner on the phonemizer's or the diacritizer's device
+    (``TorchGraphRunner``, no interpreter fallback)."""
+    _same_but(rel, differ)
+
+
+def test_aux_compile_copy():
+    """The bucket ladder is verbatim; ``compiled_runner`` builds a
+    ``TorchGraphRunner`` on a device, and the ``PHOONNX_AUX_COMPILE``
+    opt-out has no counterpart."""
+    original = _top_level(JAX_PKG / "onnx" / "aux_compile.py")
+    copy = _top_level(PORT_PKG / "onnx" / "aux_compile.py")
+    for name in ("AUX_LEN_BUCKETS", "bucket_len"):
         assert copy[name] == _rewrite(original[name]), name
-    base_orig = _methods(original["BasePhonemizer"])
-    base_copy = _methods(copy["BasePhonemizer"])
-    assert set(base_copy) == set(base_orig)
-    for name, src in base_orig.items():
-        if name not in ("phonikud", "tashkeel"):
-            assert base_copy[name] == _rewrite(src), name
+    assert set(copy) == set(original) - {"aux_compile_enabled", "LOG"}
+    assert "TorchGraphRunner" in copy["compiled_runner"]
 
 
 @pytest.mark.parametrize("name", ["STATS_WINDOW", "SynthesisStats", "timed"])

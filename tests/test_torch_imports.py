@@ -3,8 +3,9 @@
 (a) A fresh interpreter whose import system refuses ``jax``, ``jaxlib``
 and ``phoonnx_tpu`` (but not ``phoonnx_tpu_torch``) imports every module
 of the port, synthesizes, serves one seeded request through the batcher,
-takes one training step and runs an exported voice graph on the ONNX
-graph engine, on the CPU. (b) The entry points default to
+takes one training step, runs an exported voice graph on the ONNX
+graph engine, phonemizes Arabic with mantoq and decodes with a micro
+ByT5 G2P, on the CPU. (b) The entry points default to
 CUDA and raise without it; they never drop to the CPU on their own.
 """
 
@@ -42,7 +43,11 @@ for trained in ("ops.mas", "ops.stft", "models.vits.discriminator",
                 "models.vits.istft_decoder", "infer.graphs",
                 "observability", "synthesize", "convert", "serve",
                 "onnx.executor", "onnx.torch_lowering", "onnx.builder",
-                "onnx.vits_graph", "infer.onnx_engine"):
+                "onnx.vits_graph", "infer.onnx_engine", "models.byt5",
+                "onnx.aux_compile", "phonemizers.mul", "phonemizers.ar",
+                "phonemizers.ko", "thirdparty.mantoq", "thirdparty.kog2p",
+                "thirdparty.hangul2ipa", "thirdparty.tashkeel",
+                "thirdparty.phonikud"):
     assert "phoonnx_tpu_torch." + trained in names, trained
 
 import torch
@@ -82,6 +87,14 @@ with tempfile.TemporaryDirectory() as tmp:
     graph_engine = OnnxFallbackEngine(read_onnx(tmp + "/v.onnx"),
                                       hp.sample_rate, device="cpu")
 assert len(graph_engine.synthesize_ids([1, 4, 5, 6, 2], seed=0)) > 0
+from phoonnx_tpu_torch.config import get_phonemizer
+assert get_phonemizer("mantoq").phonemize_string("مرحبا 12", "ar")
+from phoonnx_tpu_torch.models import byt5
+t5 = byt5.T5Config(vocab_size=384, d_model=16, d_kv=8, d_ff=32, num_heads=2,
+                   num_encoder_layers=1, num_decoder_layers=1)
+g2p = byt5.ByT5Engine.from_flat(byt5.random_flat(t5), max_length=8,
+                                device="cpu")
+assert len(g2p.greedy_decode([10, 45, 99, 1])) <= 8
 leaked = sorted(m for m in sys.modules
                 if any(m == b or m.startswith(b + ".") for b in BLOCKED))
 assert not leaked, leaked
