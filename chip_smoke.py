@@ -141,16 +141,34 @@ another sm_90a card) and the CUDA toolkit. The script
    ``run_training(quality=..., batch_size=16, max_epochs=1)`` on the
    card at ``medium`` and at ``medium-mb-istft``, printing each step's
    time, losses and kernel D time, checking finite losses, changed
-   parameters, that kernel D was launched and A, B, C were not, and that
-   the checkpoint restores to equal tensors; then the micro overfit
-   recipe of the JAX package's tests (250 steps on two learnable
-   utterances) held to that test's margins;
+   parameters, that kernel D was launched in the epoch, that the steps
+   and validation launched none of A, B, C while the epoch's test audio
+   (``write_test_audio``, 5 held-out utterances) launched them once an
+   utterance (C once a decoder stage) and wrote every WAV with no failure
+   recorded, and that the checkpoint restores to equal tensors; then the
+   micro overfit recipe of the JAX package's tests (250 steps on two
+   learnable utterances) held to that test's margins; then the training
+   pipeline (``pipeline:`` lines) at ``medium``, batch 16: a raw LJ
+   Speech-style corpus (``metadata.csv`` and 22050 Hz WAVs of the same 45
+   tone utterances, grapheme texts) preprocessed by ``run_preprocess`` on
+   the card and on the CPU (seconds of each; the same rows, trimmed audio
+   equal, spectrograms within 1e-5 of their peak); three epochs of
+   ``run_training`` on it (float32; resumed in bf16 with grad_accum 2;
+   resumed with remat), each checked as above; one batch stepped from one
+   seed in float32, bf16, grad_accum 2 and remat (first-step losses side
+   by side, step ms, peak memory); the last checkpoint exported in
+   float32 and int8, each served by ``TTSVoice.load`` on the card (the
+   241-id request timed, A, B, C launched), the float32 one within 1e-3
+   of the peak of a ``VitsEngine`` over the checkpoint's generator at
+   equal length; and a 4-speaker warm start from the float32 export
+   taking one step;
 5. prints each path's launch counts (every path counted from 0), one
    ``{"kernels": [...]}`` line whose launches sum the serving paths (A, B,
-   C, the server's load and the front end's voices included; a graph
-   replay adds the launches of its capture; the bf16 builds
-   ``A:fused_encoder_bf16`` etc. those of the bf16 paths) and the two
-   training runs (D), and, last, one
+   C, the server's load, the front end's voices, the training runs' test
+   audio and the exported voices included; a graph replay adds the
+   launches of its capture; the bf16 builds ``A:fused_encoder_bf16`` etc.
+   those of the bf16 paths) and the training runs (D: the two epochs, the
+   pipeline's epochs, option steps and warm start), and, last, one
    ``{"ok": true, "device": {...}}`` line.
 
 It exits non-zero, with no result line, when there is no CUDA device, when
@@ -3162,6 +3180,18 @@ def tone_audio(ids, frames_per_id: int, hop: int, sr: int) -> np.ndarray:
     return audio
 
 
+def tone_utterances(hp, n_utts: int, seed: int, seconds, n_symbols: int):
+    """(phoneme ids, audio) of ``n_utts`` utterances of per-phoneme tones,
+    lengths drawn from ``seconds``."""
+    rng = np.random.default_rng(seed)
+    for _ in range(n_utts):
+        frames = int(rng.uniform(*seconds) * hp.sample_rate / hp.hop_length)
+        frames_per_id = int(rng.integers(4, 9))
+        ids = rng.integers(1, n_symbols, max(2, frames // frames_per_id))
+        yield ids, tone_audio(ids, frames_per_id, hp.hop_length,
+                              hp.sample_rate)
+
+
 def write_dataset(torch, out_dir: Path, hp, n_utts: int, seed: int,
                   seconds=(1.5, 8.0), n_symbols: int = 40) -> Path:
     """A synthetic LJSpeech-style dataset dir: ``config.json``,
@@ -3170,7 +3200,6 @@ def write_dataset(torch, out_dir: Path, hp, n_utts: int, seed: int,
     lengths drawn from ``seconds``."""
     from phoonnx_tpu_torch.ops import stft
 
-    rng = np.random.default_rng(seed)
     if out_dir.exists():
         shutil.rmtree(out_dir)
     (out_dir / "cache").mkdir(parents=True)
@@ -3179,11 +3208,8 @@ def write_dataset(torch, out_dir: Path, hp, n_utts: int, seed: int,
     (out_dir / "config.json").write_text(json.dumps(config),
                                          encoding="utf-8")
     lines = []
-    for i in range(n_utts):
-        frames = int(rng.uniform(*seconds) * hp.sample_rate / hp.hop_length)
-        frames_per_id = int(rng.integers(4, 9))
-        ids = rng.integers(1, n_symbols, max(2, frames // frames_per_id))
-        audio = tone_audio(ids, frames_per_id, hp.hop_length, hp.sample_rate)
+    for i, (ids, audio) in enumerate(tone_utterances(hp, n_utts, seed,
+                                                     seconds, n_symbols)):
         spec = stft.spectrogram(torch.from_numpy(audio)[None],
                                 hp.filter_length, hp.hop_length,
                                 hp.win_length)[0].numpy()
@@ -3951,26 +3977,28 @@ def training_phase(torch, data: Path, seed: int, profile: bool,
         return out
 
     mas.launch = timed_launch
-    others = serving_kernels()
+    kernels = all_kernels()
     try:
-        reset_launches({"D": mas.__name__, **others})
+        reset_launches(kernels)
         t0 = time.perf_counter()
-        run = run_training(str(data), quality=quality, batch_size=16,
-                           max_epochs=1, seed=seed, log_every=1)
+        with TestAudioCounts(kernels) as audio:
+            run = run_training(str(data), quality=quality, batch_size=16,
+                               max_epochs=1, seed=seed, log_every=1)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = mas.launches
-        other_launches = launch_counts(others)
+        total = launch_counts(kernels)
     finally:
         mas.launch = launch
+    launches = total["D"]
+    steps = {k: total[k] - audio.inside[k] for k in kernels}
     print(f"{tag}: run_training wall {wall:.3f} s, {len(run.steps)} steps, "
-          f"kernel D launches {launches}, kernels A/B/C launches "
-          f"{other_launches}", flush=True)
+          f"kernel D launches {launches}; in the steps and validation "
+          f"{steps}, in the test audio {audio.inside}", flush=True)
     check(launches > 0, "kernel D was not launched on the training path")
-    check(not any(other_launches.values()),
-          "the training path reached an inference kernel")
+    check_test_audio(run, audio, total, tag)
     check(len(run.steps) > 0, "no training step ran")
-    check(len(events) == launches, "kernel D launches and timings disagree")
+    # D's launches in the test audio are none: the timings are the steps'
+    check(len(events) == steps["D"], "kernel D launches and timings disagree")
 
     mas_ms = [s.elapsed_time(e) for s, e, _ in events]
     for record, ms, (_, _, shape) in zip(run.steps, mas_ms, events):
@@ -4022,7 +4050,73 @@ def training_phase(torch, data: Path, seed: int, profile: bool,
 
     if profile:
         profile_train_step(torch, run, data, seed)
-    return launches, {"step_ms": step_ms, "mas_ms": mas_ms}
+    return launches, {"step_ms": step_ms, "mas_ms": mas_ms,
+                      "test_audio": {k: audio.inside[k] for k in "ABC"}}
+
+
+class TestAudioCounts:
+    """Counts the launches of ``kernels`` inside ``trainer.write_test_audio``
+    (``inside``) and, at each of its calls, the counts reached before it
+    (``at_calls``: one a trained epoch, after its steps and validation)."""
+
+    def __init__(self, kernels):
+        self.kernels = kernels
+        self.inside = {name: 0 for name in kernels}
+        self.at_calls = []
+
+    def __enter__(self):
+        from phoonnx_tpu_torch.train import trainer
+
+        self.trainer, self.write = trainer, trainer.write_test_audio
+
+        def counted(*args, **kw):
+            before = launch_counts(self.kernels)
+            self.at_calls.append(before)
+            try:
+                return self.write(*args, **kw)
+            finally:
+                after = launch_counts(self.kernels)
+                for name in self.inside:
+                    self.inside[name] += after[name] - before[name]
+
+        trainer.write_test_audio = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.trainer.write_test_audio = self.write
+        return False
+
+
+def check_test_audio(run, audio, total, tag):
+    """A training run's steps and validation launched none of A, B, C
+    (``total`` less what the test audio launched); its test audio
+    launched them for every held-out utterance of every epoch (one A and
+    one B an utterance, one C a decoder stage), wrote a WAV for each and
+    recorded no failure; D was launched in every epoch."""
+    steps = {name: total[name] - audio.inside[name] for name in "ABC"}
+    check(not any(steps.values()),
+          f"{tag}: the training steps reached an inference kernel {steps}")
+    previous = 0
+    for out, counts in zip(run.test_audio_dirs, audio.at_calls):
+        check(counts["D"] > previous,
+              f"{tag}: kernel D was not launched before {out.name}'s audio")
+        previous = counts["D"]
+    check(not run.test_audio_errors,
+          f"{tag}: test audio failed: {run.test_audio_errors}")
+    epochs, n_test = len(run.test_audio_dirs), len(run.test_utterances)
+    check(epochs == len(audio.at_calls) and epochs > 0,
+          f"{tag}: {epochs} test-audio directories for "
+          f"{len(audio.at_calls)} epochs")
+    want = {"A": n_test * epochs, "B": n_test * epochs,
+            "C": n_test * len(run.hp.upsample_rates) * epochs}
+    got = {name: audio.inside[name] for name in "ABC"}
+    check(got == want, f"{tag}: test audio launched {got}, wanted {want}")
+    for out in run.test_audio_dirs:
+        wavs = sorted(out.glob("test_*.wav"))
+        check(len(wavs) == n_test, f"{tag}: {len(wavs)} test WAVs in {out}")
+    print(f"{tag}: test audio: {epochs} epoch(s) x {n_test} WAVs, launches "
+          f"{got}; the steps and validation launched A/B/C {steps}",
+          flush=True)
 
 
 def profile_train_step(torch, run, data: Path, seed: int):
@@ -4128,6 +4222,376 @@ def overfit_phase(torch, dev, seed: int):
           "overfit: duration loss did not fall below 0.95x its start")
     check(1e-3 < min(tail) and max(tail) < 20.0,
           "overfit: discriminator left its healthy band")
+
+
+# ---------------------------------------------------------------------------
+# the training pipeline: preprocess -> train -> checkpoint -> export -> serve
+# ---------------------------------------------------------------------------
+
+# spectrograms of the card against the CPU's, max-abs over the peak: both
+# float32 STFTs of the same trimmed audio, summed in other orders
+SPEC_TOL = 1e-5
+PIPELINE_IDS = 241
+PIPELINE_RUNS = 5
+LETTERS = "abcdefghijklmnopqrstuvwxyz"
+
+
+def sync(torch, dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def write_corpus(out_dir: Path, hp, n_utts: int, seed: int,
+                 seconds=(1.5, 8.0), n_symbols: int = 40) -> Path:
+    """A raw LJ Speech-style corpus: ``metadata.csv`` and 16-bit WAVs at
+    ``hp.sample_rate`` of the tone utterances :func:`write_dataset` makes
+    from the same seed, each between 0.25 s of faint noise, with one letter
+    a phoneme id as its text (a space every six)."""
+    pad_rng = np.random.default_rng(seed + 1)
+    if out_dir.exists():
+        shutil.rmtree(out_dir)
+    (out_dir / "wavs").mkdir(parents=True)
+    pad = int(0.25 * hp.sample_rate)
+    lines = []
+    for i, (ids, audio) in enumerate(tone_utterances(hp, n_utts, seed,
+                                                     seconds, n_symbols)):
+        audio = np.concatenate([
+            0.002 * pad_rng.standard_normal(pad), audio,
+            0.002 * pad_rng.standard_normal(pad)]).astype(np.float32)
+        write_wav(out_dir / "wavs" / f"utt{i:03d}.wav", audio,
+                  hp.sample_rate)
+        letters = [LETTERS[(int(x) - 1) % len(LETTERS)] for x in ids]
+        words = ["".join(letters[j:j + 6]) for j in range(0, len(letters),
+                                                           6)]
+        lines.append(f"utt{i:03d}|{' '.join(words)}")
+    (out_dir / "metadata.csv").write_text("\n".join(lines) + "\n",
+                                          encoding="utf-8")
+    return out_dir
+
+
+def preprocess_phase(torch, corpus: Path, root: Path, sample_rate: int,
+                     dev, tag="pipeline", **kw) -> Path:
+    """``run_preprocess`` of ``corpus`` on ``dev`` and on the CPU, each
+    with a cache of its own: the same rows, the trimmed audio equal and
+    the spectrograms within SPEC_TOL of their peak. Returns the device's
+    dataset directory."""
+    from phoonnx_tpu_torch.train.preprocess import run_preprocess
+
+    kw = dict(language="en", phoneme_type="graphemes", alphabet="unicode",
+              sample_rate=sample_rate, single_speaker=True, **kw)
+    dirs, seconds = {}, {}
+    for side, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        out = root / side / "dataset"
+        if out.exists():
+            shutil.rmtree(out)
+        t0 = time.perf_counter()
+        run_preprocess(str(corpus), str(out), device=str(device), **kw)
+        sync(torch, dev)
+        seconds[side] = time.perf_counter() - t0
+        dirs[side] = out
+    rows = {side: [json.loads(line) for line in (d / "dataset.jsonl")
+                   .read_text(encoding="utf-8").splitlines()]
+            for side, d in dirs.items()}
+    n_wavs = len((corpus / "metadata.csv").read_text().splitlines())
+    check(len(rows["card"]) == len(rows["cpu"]) == n_wavs,
+          f"{tag}: {len(rows['card'])} and {len(rows['cpu'])} rows for "
+          f"{n_wavs} files")
+    worst, samples = 0.0, 0
+    for a, b in zip(rows["card"], rows["cpu"]):
+        check(a["audio_path"] == b["audio_path"]
+              and a["phoneme_ids"] == b["phoneme_ids"],
+              f"{tag}: rows differ at {a['audio_path']}")
+        audio_a, audio_b = (np.load(a["audio_norm_path"]),
+                            np.load(b["audio_norm_path"]))
+        check(np.array_equal(audio_a, audio_b),
+              f"{tag}: trimmed audio differs for {a['audio_path']}")
+        samples += len(audio_a)
+        spec_a, spec_b = (np.load(a["audio_spec_path"]),
+                          np.load(b["audio_spec_path"]))
+        check(spec_a.shape == spec_b.shape,
+              f"{tag}: spectrogram shapes {spec_a.shape} {spec_b.shape}")
+        worst = max(worst, float(np.abs(spec_a - spec_b).max()
+                                 / np.abs(spec_b).max()))
+    print(f"{tag}: preprocess {n_wavs} files ({samples / sample_rate:.1f} s "
+          f"trimmed at {sample_rate} Hz): {seconds['card']:.3f} s on "
+          f"{dev}, {seconds['cpu']:.3f} s on the CPU; trimmed audio equal, "
+          f"spectrograms max-abs/peak {worst:.3e} (tol {SPEC_TOL})",
+          flush=True)
+    check(worst <= SPEC_TOL, f"{tag}: spectrograms differ by {worst:.3e}")
+    return dirs["card"]
+
+
+def pipeline_epochs(torch, data: Path, seed: int, dev, quality="medium",
+                    batch_size=16, tag="pipeline"):
+    """Three epochs of ``run_training`` on ``data`` as a user drives them:
+    float32; resumed from its checkpoint in bf16 with grad_accum 2; resumed
+    again with remat. Each epoch writes its test audio. Returns (the runs,
+    D's launches, A/B/C's launches in the test audio)."""
+    from phoonnx_tpu_torch.train import step
+    from phoonnx_tpu_torch.train.trainer import run_training
+
+    kernels = all_kernels()
+    runs, d_launches = [], 0
+    audio_launches = {name: 0 for name in "ABC"}
+    options = (("float32", {}),
+               ("bf16 grad_accum 2", dict(compute_dtype="bfloat16",
+                                          grad_accum=2)),
+               ("remat", dict(remat=True)))
+    for label, kw in options:
+        resume = runs[-1].checkpoint if runs else None
+        reset_launches(kernels)
+        t0 = time.perf_counter()
+        with TestAudioCounts(kernels) as audio:
+            run = run_training(str(data), quality=quality,
+                               batch_size=batch_size,
+                               max_epochs=len(runs) + 1, seed=seed,
+                               log_every=1, resume_from_checkpoint=resume,
+                               device=str(dev), **kw)
+        sync(torch, dev)
+        wall = time.perf_counter() - t0
+        total = launch_counts(kernels)
+        name = f"{tag} {label}"
+        check(run.steps and all(r["epoch"] == len(runs) for r in run.steps),
+              f"{name}: no step of epoch {len(runs)}")
+        for record in run.steps:
+            check(all(math.isfinite(record[k]) for k in step.METRICS),
+                  f"{name}: non-finite loss at step {record['step']}")
+        step_ms = [r["ms"] for r in run.steps]
+        print(f"{name}: epoch {len(runs)} wall {wall:.3f} s, steps "
+              f"{[r['step'] for r in run.steps]} ms "
+              f"{[round(ms, 3) for ms in step_ms]}; losses of the last "
+              + " ".join(f"{k}={run.steps[-1][k]:.4f}" for k in step.METRICS)
+              + f"; validation {run.val_losses}; D launches {total['D']}",
+              flush=True)
+        check_test_audio(run, audio, total, name)
+        d_launches += total["D"]
+        for k in audio_launches:
+            audio_launches[k] += audio.inside[k]
+        runs.append(run)
+    return runs, d_launches, audio_launches
+
+
+def option_steps(torch, run, data: Path, seed: int, dev, batch_size=16,
+                 tag="pipeline"):
+    """One batch of ``data`` and one seed, a fresh state each: a step in
+    float32, bf16, grad_accum 2 and remat, then three more timed; the
+    first step's losses side by side and each step's peak memory. Returns
+    D's launches."""
+    from phoonnx_tpu_torch.ops import mas
+    from phoonnx_tpu_torch.train.dataset import BucketedLoader, load_dataset
+    from phoonnx_tpu_torch.train.step import (METRICS, TrainConfig,
+                                              batch_to_device,
+                                              init_train_state, train_step)
+    from phoonnx_tpu_torch.train.trainer import step_generator
+
+    hp = run.hp
+    loader = BucketedLoader(load_dataset([data / "dataset.jsonl"]),
+                            batch_size=batch_size,
+                            segment_size_frames=hp.segment_size,
+                            hop_length=hp.hop_length, seed=seed,
+                            spec_channels=hp.spec_channels)
+    batch = batch_to_device(next(iter(loader.epoch(epoch_index=0))), dev)
+    kernels = {"D": mas.__name__}
+    reset_launches(kernels)
+    first = {}
+    for label, kw in (("float32", {}), ("bf16", dict(
+            compute_dtype="bfloat16")), ("grad_accum 2", dict(grad_accum=2)),
+            ("remat", dict(remat=True))):
+        cfg = TrainConfig(**kw)
+        state = init_train_state(hp, cfg, torch.Generator().manual_seed(seed),
+                                 device=dev)
+        sync(torch, dev)
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated() if dev.type == "cuda" else 0
+        d0 = launch_counts(kernels)["D"]
+        times, losses = [], None
+        for i in range(4):
+            sync(torch, dev)
+            t0 = time.perf_counter()
+            state, m = train_step(state, batch, hp, cfg,
+                                  generator=step_generator(dev, seed, i))
+            values = torch.stack([m[k] for k in METRICS]).tolist()
+            times.append((time.perf_counter() - t0) * 1e3)
+            losses = losses or dict(zip(METRICS, values))
+        peak = (torch.cuda.max_memory_allocated() - base
+                if dev.type == "cuda" else 0)
+        first[label] = losses
+        check(all(math.isfinite(v) for v in losses.values()),
+              f"{tag}: {label}: non-finite loss {losses}")
+        print(f"{tag}: step {label}: batch {tuple(batch['spec'].shape)} "
+              f"first ms {times[0]:.3f}, next three median "
+              f"{statistics.median(times[1:]):.3f} ms; peak allocated over "
+              f"the state {peak / 2 ** 20:.1f} MiB; D launches "
+              f"{launch_counts(kernels)['D'] - d0} in 4 steps; first step "
+              + " ".join(f"{k}={v:.5f}" for k, v in losses.items()),
+              flush=True)
+        del state
+    worst = max(abs(first["remat"][k] - first["float32"][k])
+                / max(abs(first["float32"][k]), 1e-12) for k in METRICS)
+    print(f"{tag}: remat vs float32 first-step losses, largest relative "
+          f"difference {worst:.3e}", flush=True)
+    # the same forward on the same inputs (remat changes the backward)
+    check(worst <= KERNEL_TOL, f"{tag}: remat moved the losses by {worst}")
+    return launch_counts(kernels)["D"]
+
+
+def export_phase(torch, run, data: Path, root: Path, seed: int, dev,
+                 quality="medium", tag="pipeline"):
+    """The last checkpoint exported in float32 and int8; each loaded by
+    ``TTSVoice.load`` on ``dev`` serves the 241-id request (timed), the
+    float32 one within PATH_TOL of the peak of a ``VitsEngine`` over the
+    checkpoint's generator at equal length. Returns (the float32 export,
+    A/B/C's launches by voice)."""
+    from phoonnx_tpu_torch import TTSVoice
+    from phoonnx_tpu_torch.infer import VitsEngine
+    from phoonnx_tpu_torch.train.checkpoint import restore_generator
+    from phoonnx_tpu_torch.train.export import run_export
+
+    ckpt = run.checkpoint
+    kernels = serving_kernels()
+    paths, exports, launches = {}, {}, {}
+    for label, quantize in (("float32", False), ("int8", True)):
+        t0 = time.perf_counter()
+        paths[label] = run_export(ckpt, str(data / "config.json"),
+                                  str(root / "export" / label),
+                                  quality=quality, generate_tokens=True,
+                                  piper=True, quantize=quantize)
+        exports[label] = time.perf_counter() - t0
+    sizes = {k: p.stat().st_size / 2 ** 20 for k, p in paths.items()}
+    print(f"{tag}: export of {Path(ckpt).name}: float32 "
+          f"{exports['float32']:.3f} s ({sizes['float32']:.1f} MiB), int8 "
+          f"{exports['int8']:.3f} s ({sizes['int8']:.1f} MiB)", flush=True)
+    check(sizes["int8"] < 0.6 * sizes["float32"],
+          f"{tag}: the int8 export is not smaller")
+    audio = {}
+    for label, path in paths.items():
+        reset_launches(kernels)
+        voice = TTSVoice.load(str(path), device=str(dev))
+        check(type(voice.engine).__name__ == "VitsEngine",
+              f"{tag}: the {label} export loaded onto "
+              f"{type(voice.engine).__name__}")
+        ids = ids_of(voice, PIPELINE_IDS, 7)
+        out = voice.engine.synthesize_ids(ids, seed=seed)
+        times = []
+        for _ in range(PIPELINE_RUNS):
+            sync(torch, dev)
+            t0 = time.perf_counter()
+            voice.engine.synthesize_ids(ids, seed=seed)
+            sync(torch, dev)
+            times.append((time.perf_counter() - t0) * 1e3)
+        launches[f"pipeline {label} export path"] = launch_counts(kernels)
+        check(len(out) > 0 and bool(np.isfinite(out).all()),
+              f"{tag}: the {label} export's audio is empty or not finite")
+        print(f"{tag}: {label} export serves {len(ids)} ids -> "
+              f"{len(out)} samples; request ms median "
+              f"{statistics.median(times):.3f} of {PIPELINE_RUNS} "
+              f"{[round(t, 3) for t in times]}; launches "
+              f"{launches[f'pipeline {label} export path']}", flush=True)
+        audio[label] = (ids, out)
+        del voice
+    ids, got = audio["float32"]
+    engine = VitsEngine(restore_generator(ckpt, run.hp), run.hp,
+                        device=str(dev))
+    want = engine.synthesize_ids(ids, seed=seed)
+    check(len(got) == len(want),
+          f"{tag}: the export gives {len(got)} samples, the checkpoint "
+          f"{len(want)}")
+    err = float(np.abs(got - want).max() / np.abs(want).max())
+    print(f"{tag}: float32 export vs the checkpoint's engine: "
+          f"{len(got)} samples each, max-abs/peak {err:.3e} (tol "
+          f"{PATH_TOL})", flush=True)
+    check(err <= PATH_TOL, f"{tag}: the export differs by {err:.3e}")
+    return paths["float32"], launches
+
+
+def warm_start_phase(torch, export_path: Path, data: Path, seed: int, dev,
+                     quality="medium", n_speakers=4, batch_size=16,
+                     tag="pipeline"):
+    """A ``n_speakers`` model warm-started from the float32 export takes
+    one step: the loaded leaves are the export's, the speaker embedding
+    keeps its fresh initialisation. Returns D's launches."""
+    from phoonnx_tpu_torch.ops import mas
+    from phoonnx_tpu_torch.onnx.reader import read_onnx
+    from phoonnx_tpu_torch.train.checkpoint import load_generator_warm_start
+    from phoonnx_tpu_torch.train.dataset import BucketedLoader, load_dataset
+    from phoonnx_tpu_torch.train.step import (METRICS, TrainConfig,
+                                              batch_to_device,
+                                              init_train_state, train_step)
+    from phoonnx_tpu_torch.train.trainer import build_hparams, step_generator
+
+    config = json.loads((data / "config.json").read_text(encoding="utf-8"))
+    hp = build_hparams(dict(config, num_speakers=n_speakers), quality)
+    cfg = TrainConfig()
+    state = init_train_state(hp, cfg, torch.Generator().manual_seed(seed),
+                             device=dev)
+    emb_g = state.params_g["emb_g"]["weight"].detach().clone()
+    t0 = time.perf_counter()
+    load_generator_warm_start(str(export_path), hp, state.params_g)
+    load_s = time.perf_counter() - t0
+    check(torch.equal(state.params_g["emb_g"]["weight"], emb_g),
+          f"{tag}: the warm start changed the speaker embedding")
+    want = read_onnx(str(export_path)).initializers["enc_p.emb.weight"]
+    check(np.array_equal(state.params_g["enc_p"]["emb"]["weight"].detach()
+                         .cpu().numpy(), want),
+          f"{tag}: the warm start did not load the text embedding")
+    loader = BucketedLoader(load_dataset([data / "dataset.jsonl"]),
+                            batch_size=batch_size,
+                            segment_size_frames=hp.segment_size,
+                            hop_length=hp.hop_length, seed=seed,
+                            spec_channels=hp.spec_channels)
+    batch = batch_to_device(next(iter(loader.epoch(epoch_index=1))), dev)
+    b = batch["phoneme_ids"].shape[0]
+    batch["sid"] = torch.arange(b, device=dev) % n_speakers
+    kernels = {"D": mas.__name__}
+    reset_launches(kernels)
+    t0 = time.perf_counter()
+    state, m = train_step(state, batch, hp, cfg,
+                          generator=step_generator(dev, seed, 0))
+    values = dict(zip(METRICS, torch.stack([m[k] for k in METRICS]).tolist()))
+    ms = (time.perf_counter() - t0) * 1e3
+    check(all(math.isfinite(v) for v in values.values()),
+          f"{tag}: warm-started step gave {values}")
+    d = launch_counts(kernels)["D"]
+    check(d > 0, f"{tag}: kernel D was not launched in the warm-started step")
+    print(f"{tag}: {n_speakers}-speaker warm start (gin "
+          f"{hp.gin_channels}) from {export_path.name} in {load_s:.3f} s; "
+          f"one step {ms:.3f} ms, D launches {d}, "
+          + " ".join(f"{k}={v:.4f}" for k, v in values.items()), flush=True)
+    return d
+
+
+def pipeline_phase(torch, root: Path, seed: int, dev, quality="medium",
+                   n_utts=45, seconds=(1.5, 8.0), batch_size=16,
+                   tag="pipeline"):
+    """The port's training pipeline as a user drives it: a raw corpus,
+    preprocessed on ``dev`` (held against the CPU), three epochs (float32;
+    bf16 with grad_accum 2; remat) each with its test audio, the options'
+    steps side by side, the export in float32 and int8 served by
+    ``TTSVoice.load``, and a multi-speaker warm start from the export.
+    Returns (A/B/C's launches by path, D's launches)."""
+    from phoonnx_tpu_torch.models.vits.model import VitsHParams
+
+    t_phase = time.perf_counter()
+    hp = VitsHParams.preset(quality)
+    corpus = write_corpus(root / "corpus", hp, n_utts, seed, seconds)
+    data = preprocess_phase(torch, corpus, root, hp.sample_rate, dev,
+                            tag=tag, n_fft=hp.filter_length,
+                            hop_length=hp.hop_length,
+                            win_length=hp.win_length)
+    runs, d_epochs, audio = pipeline_epochs(torch, data, seed, dev, quality,
+                                            batch_size, tag)
+    d_steps = option_steps(torch, runs[-1], data, seed, dev, batch_size,
+                           tag)
+    export, paths = export_phase(torch, runs[-1], data, root, seed, dev,
+                                 quality, tag)
+    d_warm = warm_start_phase(torch, export, data, seed, dev, quality,
+                              batch_size=batch_size, tag=tag)
+    paths["pipeline test audio"] = audio
+    print(f"{tag}: the phase took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return paths, d_epochs + d_steps + d_warm
 
 
 def high_stage0(torch, seed, dev):
@@ -4324,23 +4788,37 @@ def main() -> None:
                                 args.seed + 16, ROOT, card))
     memory_line(torch, "the front end")
 
-    # training: kernel D, at medium and on the MB-iSTFT decoder
+    # training: kernel D in the steps, at medium and on the MB-iSTFT
+    # decoder; A, B and C in each epoch's test audio
     data = training_dataset(torch, ROOT, args.seed)
-    d_medium, _ = training_phase(torch, data, args.seed, args.profile)
-    d_mb, _ = training_phase(torch, data, args.seed, False,
-                             quality="medium-mb-istft")
+    d_medium, medium_run = training_phase(torch, data, args.seed,
+                                          args.profile)
+    d_mb, mb_run = training_phase(torch, data, args.seed, False,
+                                  quality="medium-mb-istft")
+    paths["train medium test audio"] = medium_run["test_audio"]
+    paths["train medium-mb-istft test audio"] = mb_run["test_audio"]
     overfit_phase(torch, dev, args.seed)
+    memory_line(torch, "training")
+
+    # the training pipeline: preprocess, three epochs, export, serve;
+    # each of its lines names the card and its power limit
+    pipeline_paths, d_pipeline = pipeline_phase(
+        torch, ROOT / "build" / "chip_smoke" / "pipeline", args.seed, dev,
+        tag=f"pipeline on {card}")
+    paths.update(pipeline_paths)
+    memory_line(torch, "the pipeline")
 
     launches = {name: sum(counts[name] for counts in paths.values())
                 for name in ("A", "B", "C")}
-    launches["D"] = d_medium + d_mb
+    launches["D"] = d_medium + d_mb + d_pipeline
     launches_bf16 = {name: sum(counts[name] for counts in paths_bf16.values())
                      for name in ("A", "B", "C")}
     for path, counts in {**paths, **paths_bf16}.items():
         print(f"launches: {path} {counts}", flush=True)
     print(f"launches: bf16 builds summed {launches_bf16}", flush=True)
     print(f"launches: training medium D={d_medium}, training "
-          f"medium-mb-istft D={d_mb}; summed {launches}", flush=True)
+          f"medium-mb-istft D={d_mb}, pipeline D={d_pipeline}; summed "
+          f"{launches}", flush=True)
 
     jax_dir = "phoonnx_tpu/models/vits"
     sources = {"A": ("fused_encoder", f"{jax_dir}/fused_encoder.py:195"),

@@ -97,28 +97,33 @@ def multi_head_attention(params, x: Tensor, c: Tensor,
     k = k.reshape(b, t_s, n_heads, k_channels).transpose(1, 2)
     v = v.reshape(b, t_s, n_heads, k_channels).transpose(1, 2)
 
+    # scores, probabilities and outputs in f32 whatever the compute dtype,
+    # as the JAX attention's einsums accumulate (preferred_element_type
+    # f32; a product of two bf16 values is exact in f32)
     scale = 1.0 / math.sqrt(k_channels)
-    scores = torch.einsum("bhtd,bhsd->bhts", q * scale, k)
+    qs = (q * scale).float()
+    scores = torch.einsum("bhtd,bhsd->bhts", qs, k.float())
     if window_size is not None:
         assert t_s == t_t, "relative attention requires self-attention"
         rel_k = _get_relative_embeddings(params["emb_rel_k"], t_s,
                                          window_size)
         rel_k = rel_k.expand((n_heads,) + rel_k.shape[1:])
-        rel_logits = torch.einsum("bhld,hmd->bhlm", q * scale, rel_k)
+        rel_logits = torch.einsum("bhld,hmd->bhlm", qs, rel_k.float())
         scores = scores + _relative_to_absolute(rel_logits)
     if attn_mask is not None:
         scores = scores.masked_fill(attn_mask == 0, -1e4)
     p_attn = torch.softmax(scores, dim=-1)
     p_attn = nn.dropout(p_attn, p_dropout, generator, deterministic)
 
-    output = torch.einsum("bhts,bhsd->bhtd", p_attn, v)
+    output = torch.einsum("bhts,bhsd->bhtd", p_attn, v.float())
     if window_size is not None:
         rel_weights = _absolute_to_relative(p_attn)
         rel_v = _get_relative_embeddings(params["emb_rel_v"], t_s,
                                          window_size)
         rel_v = rel_v.expand((n_heads,) + rel_v.shape[1:])
-        output = output + torch.einsum("bhlm,hmd->bhld", rel_weights, rel_v)
-    output = output.transpose(1, 2).reshape(b, t_t, d)
+        output = output + torch.einsum("bhlm,hmd->bhld", rel_weights,
+                                       rel_v.float())
+    output = output.transpose(1, 2).reshape(b, t_t, d).to(x.dtype)
     return nn.apply_conv(params["conv_o"], output)
 
 

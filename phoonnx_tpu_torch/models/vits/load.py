@@ -253,6 +253,27 @@ def params_from_flat(
     leaf of the skeleton was never filled (shape mismatches always raise).
     """
     params = random_params(hp, torch.Generator().manual_seed(0))
+    filled, unmatched = fill_from_flat(params, named)
+    if strict:
+        if unmatched:
+            raise ValueError(f"unrouted parameters: {unmatched[:10]}"
+                             f" (+{max(0, len(unmatched) - 10)} more)")
+        # every leaf of the final skeleton must come from the checkpoint:
+        # a partially-saved file would otherwise run with random_params
+        # initialization in the missing slots and synthesize noise
+        unfilled = [p for p in _leaf_paths(params) if p not in filled]
+        if unfilled:
+            raise ValueError(
+                f"checkpoint leaves missing: {unfilled[:10]}"
+                f" (+{max(0, len(unfilled) - 10)} more)")
+    return params
+
+
+def fill_from_flat(params: Dict[str, Any], named: Mapping[str, np.ndarray]
+                   ) -> Tuple[set, list]:
+    """Write every routable array of ``named`` into the tree ``params``
+    (in place, as CPU tensors; a folded ``weight`` replaces its
+    weight-norm pair). Returns (the filled paths, the unrouted names)."""
     unmatched = []
     filled = set()
     for raw_name, value in named.items():
@@ -270,19 +291,7 @@ def params_from_flat(
         _check_shape(params, path, value, raw_name)
         _set_leaf(params, path, value)
         filled.add(path)
-    if strict:
-        if unmatched:
-            raise ValueError(f"unrouted parameters: {unmatched[:10]}"
-                             f" (+{max(0, len(unmatched) - 10)} more)")
-        # every leaf of the final skeleton must come from the checkpoint:
-        # a partially-saved file would otherwise run with random_params
-        # initialization in the missing slots and synthesize noise
-        unfilled = [p for p in _leaf_paths(params) if p not in filled]
-        if unfilled:
-            raise ValueError(
-                f"checkpoint leaves missing: {unfilled[:10]}"
-                f" (+{max(0, len(unfilled) - 10)} more)")
-    return params
+    return filled, unmatched
 
 
 def _leaf_paths(tree: Any, prefix: Tuple = ()) -> Iterator[Tuple]:

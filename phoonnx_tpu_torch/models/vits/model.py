@@ -352,12 +352,13 @@ def train_forward(params, hp: VitsHParams, x_ids: Tensor, x_lengths: Tensor,
         l_length = duration.sdp_nll(
             params["dp"], x, x_mask, w, e_q.to(dev, spec.dtype), g=g,
             p_dropout=0.5, **drop)
-        l_length = l_length / torch.sum(x_mask.float())
+        # exact token count, the quotient in f32 as JAX promotes it
+        l_length = l_length.float() / torch.sum(x_mask.float())
     else:
         logw_ = torch.log(w + 1e-6) * x_mask
         logw = duration.duration_predictor(params["dp"], x, x_mask, g=g,
                                            p_dropout=0.5, **drop)
-        l_length = (torch.sum(torch.square(logw - logw_), dim=(1, 2))
+        l_length = (torch.sum(torch.square(logw - logw_), dim=(1, 2)).float()
                     / torch.sum(x_mask.float()))
 
     # expand the prior over the alignment: [B, T_y, T_x] @ [B, T_x, C]

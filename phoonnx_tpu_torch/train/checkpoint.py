@@ -12,20 +12,30 @@ The optimizer state is saved under the port's own names
 (``.opt_g.exp_avg[...]``, ``.opt_g.exp_avg_sq[...]``, ``.opt_g.count``).
 Restoring a JAX checkpoint reads optax's AdamW moments instead
 (``.opt_g[i][0].mu[...]`` / ``.nu[...]`` / ``.count``), which are the same
-quantities, so a JAX run resumes in the port. Warm starts from ONNX or
-torch checkpoints (JAX ``checkpoint.py:120-162``) are not ported yet.
+quantities, so a JAX run resumes in the port.
+
+Generator imports (JAX ``checkpoint.py:78-162``): :func:`restore_generator`
+reads the ``.params_g`` leaves of either trainer's checkpoint (the
+exporter's source), and :func:`load_generator_warm_start` imports a
+generator from an exported ONNX container or a torch Lightning
+checkpoint into a (possibly multi-speaker) model, with the reference's
+missing-key tolerance and single->multi-speaker surgery (train.py:15-26,
+131-144).
 """
 
 import json
+import logging
 import re
 from pathlib import Path
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from phoonnx_tpu_torch.train.step import (TrainConfig, TrainState,
                                           init_train_state, keyed_leaves)
+
+LOG = logging.getLogger(__name__)
 
 _OPTAX_MOMENT = re.compile(r"^\.opt_([gd])((?:\[\d+\])+)\.(mu|nu)(\[.*)$")
 
@@ -166,3 +176,106 @@ def latest_checkpoint(ckpt_dir: str) -> Optional[str]:
     if not steps:
         return None
     return str(max(steps)[1])
+
+
+def restore_generator(path: str, hp):
+    """Only the generator parameters of a train-state checkpoint (written
+    by :func:`save` or by the JAX trainer), as a tree of CPU float32
+    tensors. Robust to training-side differences (discriminator size,
+    optimizer states): only ``.params_g`` leaves are read, into a fresh
+    skeleton, and a missing leaf or a shape mismatch raises."""
+    from phoonnx_tpu_torch.models.vits.model import random_params
+
+    with np.load(path) as stored:
+        flat = {k: stored[k] for k in stored.files
+                if k.startswith(".params_g")}
+    params = random_params(hp, torch.Generator().manual_seed(0))
+    _fill(params, flat, ".params_g")
+    return params
+
+
+def _flat_from_torch_ckpt(path: str) -> Dict[str, np.ndarray]:
+    """Flat generator arrays from a torch Lightning checkpoint."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    state_dict = ckpt.get("state_dict", ckpt)
+    flat = {}
+    for key, value in state_dict.items():
+        if key.startswith("model_g."):
+            flat[key[len("model_g."):]] = value.numpy()
+    return flat
+
+
+def load_generator_flat(path: str) -> Dict[str, np.ndarray]:
+    """Flat generator arrays from .onnx container or torch .ckpt."""
+    if path.endswith(".onnx"):
+        from phoonnx_tpu_torch.onnx.reader import read_onnx
+
+        return read_onnx(path).initializers
+    return _flat_from_torch_ckpt(path)
+
+
+_SPEAKER_COND_PREFIXES = ("dec.cond.", "dp.cond.", "enc_q.enc.cond_layer.")
+
+
+def _copy_into(target: Any, source: Any) -> None:
+    """Copy ``source``'s tensors into ``target``'s (same tree), where a
+    folded ``weight`` in ``source`` fills a weight-norm pair of
+    ``target`` as v = weight, g = its norm over all dims but 0, so that
+    ``nn.weight_norm(v, g)`` is the weight again."""
+    if isinstance(target, dict):
+        for key, value in target.items():
+            if key in ("weight_v", "weight_g") and "weight_v" not in source:
+                weight = source["weight"]
+                if key == "weight_v":
+                    value.copy_(weight)
+                else:
+                    dims = tuple(range(1, weight.ndim))
+                    value.copy_(torch.sqrt(torch.sum(
+                        weight * weight, dim=dims, keepdim=True)))
+            else:
+                _copy_into(value, source[key])
+    elif isinstance(target, list):
+        for t, s in zip(target, source):
+            _copy_into(t, s)
+    elif isinstance(target, torch.Tensor):
+        target.copy_(source.to(target.device, target.dtype))
+
+
+def _cpu_copy(tree: Any) -> Any:
+    if isinstance(tree, dict):
+        return {k: _cpu_copy(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_cpu_copy(v) for v in tree]
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().clone()
+    return tree
+
+
+def load_generator_warm_start(path: str, hp, target_params):
+    """Import a single-speaker generator into a (possibly multi-speaker)
+    model, dropping conditioning layers absent in the source
+    (reference surgery: train.py:131-144). Missing keys keep their fresh
+    initialization (missing-key-tolerant load, train.py:15-26).
+
+    ``target_params`` is that fresh initialization, a training tree whose
+    leaves are written in place (the optimizer keeps its references) and
+    returned. The JAX function returns a new tree whose missing leaves are
+    ``random_params(PRNGKey(0))``'s and whose folded weights (an export's
+    decoder) replace their weight-norm pairs, a tree its optimizer state
+    does not fit; here a folded weight w fills its pair as v = w,
+    g = ||w||, the parametrisation torch's weight_norm starts from.
+    """
+    from phoonnx_tpu_torch.models.vits import load
+
+    flat = load_generator_flat(path)
+    flat = {
+        k: v for k, v in flat.items()
+        if not k.startswith(_SPEAKER_COND_PREFIXES) and
+        not k.startswith("emb_g.")
+    }
+    loaded = _cpu_copy(target_params)
+    filled, _ = load.fill_from_flat(loaded, flat)
+    LOG.info("warm start: %d generator tensors from %s", len(filled), path)
+    with torch.no_grad():
+        _copy_into(target_params, loaded)
+    return target_params

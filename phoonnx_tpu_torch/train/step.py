@@ -7,9 +7,13 @@ the generated audio detached, as Lightning's second optimizer reuses the
 cached y / y_hat. Gradients of the generator objective are taken with
 respect to the generator's leaves only (it also runs the discriminator).
 
-Float32 only. The JAX step's ``compute_dtype="bfloat16"``, ``remat`` and
-``grad_accum`` have no counterpart here yet (ROADMAP.md, port queue item
-7); ``mas_impl`` and ``data_axis_size`` were TPU policy and bookkeeping.
+The JAX step's options (step.py:132-159, 247-289): ``compute_dtype=
+"bfloat16"`` computes the forward and backward in bf16 against float32
+master weights, with the mel and the losses in float32; ``grad_accum``
+averages the gradients of that many micro-batches before one update of
+each network; ``remat`` recomputes the generator forward in the backward
+pass (``torch.utils.checkpoint``). ``mas_impl`` and ``data_axis_size``
+were TPU policy and bookkeeping and have no counterpart.
 """
 
 from typing import Any, Dict, Iterator, List, NamedTuple, Optional, Tuple
@@ -19,6 +23,7 @@ import torch
 
 from phoonnx_tpu_torch.models.vits import discriminator as disc
 from phoonnx_tpu_torch.models.vits import model as vits_model
+from phoonnx_tpu_torch.models.vits import nn
 from phoonnx_tpu_torch.models.vits.model import VitsHParams
 from phoonnx_tpu_torch.ops import stft
 from phoonnx_tpu_torch.train import losses
@@ -46,6 +51,17 @@ class TrainConfig(NamedTuple):
     grad_clip: Optional[float] = None
     disc_periods: Tuple[int, ...] = (2, 3, 5, 7, 11)
     disc_channel_scale: int = 1  # >1 shrinks the discriminator (tests)
+    remat: bool = False  # recompute the generator forward (saves memory)
+    # "bfloat16": forward/backward in bf16 with f32 master weights,
+    # optimizer state and losses (mixed precision); kernel D takes f32
+    # scores (ops/mas.py casts them)
+    compute_dtype: str = "float32"
+    # >1: split the batch into this many micro-batches, average their
+    # gradients, apply ONE update (activation memory scales with the
+    # micro-batch). Every loss term is a batch mean except the duration
+    # SUM the reference uses (lightning.py:253), which averages over
+    # micro-batches here, as in the JAX step.
+    grad_accum: int = 1
 
 
 def keyed_leaves(tree: Any, prefix: str = "") -> Iterator[Tuple[str, Tensor]]:
@@ -142,6 +158,32 @@ def _mel(y: Tensor, hp: VitsHParams) -> Tensor:
                                 hp.sample_rate, hp.hop_length, hp.win_length)
 
 
+def compute_dtype(cfg: TrainConfig) -> torch.dtype:
+    if cfg.compute_dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"compute_dtype {cfg.compute_dtype!r}: 'float32' "
+                         "or 'bfloat16'")
+    return torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
+
+
+def _checkpointed_forward(forward, generator: Optional[torch.Generator]):
+    """``forward`` under ``torch.utils.checkpoint``: its activations are
+    recomputed in the backward pass. The checkpoint restores only the
+    global RNGs for the recompute, and the training forward draws its
+    noise and dropout masks from ``generator``; so every call of the
+    wrapped function first resets ``generator`` to its state at the
+    first call, and the recompute draws the masks the forward drew."""
+    from torch.utils.checkpoint import checkpoint
+
+    state = None if generator is None else generator.get_state()
+
+    def run():
+        if state is not None:
+            generator.set_state(state)
+        return forward()
+
+    return checkpoint(run, use_reentrant=False)
+
+
 def generator_objective(params_g, params_d, batch: Dict[str, Tensor],
                         hp: VitsHParams, cfg: TrainConfig,
                         deterministic: bool,
@@ -150,33 +192,53 @@ def generator_objective(params_g, params_d, batch: Dict[str, Tensor],
     """(total generator loss, aux): the training forward, the mel, KL,
     duration, feature-matching and adversarial terms (step.py:161-208).
     ``noise`` may inject ``post_noise``, ``e_q`` and ``slice_u`` into
-    :func:`model.train_forward`."""
-    out = vits_model.train_forward(
-        params_g, hp, batch["phoneme_ids"], batch["phoneme_lengths"],
-        batch["spec"], batch["spec_lengths"], sid=batch.get("sid"),
-        deterministic=deterministic, generator=generator, **(noise or {}))
-    y_hat = out["audio"]  # [B, segment_samples]
+    :func:`model.train_forward`.
+
+    In bf16 (``cfg.compute_dtype``) the parameters and the batch are cast
+    inside the objective, so the gradients land on the float32 leaves;
+    the mel of the generated audio and every loss are float32. With
+    ``cfg.remat`` the training forward is checkpointed."""
+    dtype = compute_dtype(cfg)
+    cast_batch = nn.cast_floating(batch, dtype)
+
+    def forward():
+        return vits_model.train_forward(
+            nn.cast_floating(params_g, dtype), hp,
+            cast_batch["phoneme_ids"], cast_batch["phoneme_lengths"],
+            cast_batch["spec"], cast_batch["spec_lengths"],
+            sid=cast_batch.get("sid"), deterministic=deterministic,
+            generator=generator, **(noise or {}))
+
+    if cfg.remat and torch.is_grad_enabled():
+        out = _checkpointed_forward(forward, generator)
+    else:
+        out = forward()
+    y_hat = out["audio"]  # [B, segment_samples], compute dtype
     y = vits_model.slice_audio_segments(
         batch["audio"], out["ids_slice"], hp.segment_size * hp.hop_length,
         hp.hop_length)
 
-    mel_hat = _mel(y_hat, hp)
+    # losses in f32 whatever the compute dtype
+    mel_hat = _mel(y_hat.float(), hp)
     # the mel TARGET is the full utterance's spectrogram, frame-sliced
     # (lightning.py:216-228), not the mel of the sliced waveform
-    mel_full = stft.spec_to_mel(batch["spec"], hp.sample_rate,
+    mel_full = stft.spec_to_mel(batch["spec"].float(), hp.sample_rate,
                                 hp.filter_length, hp.mel_channels)
     mel_real = vits_model._slice_segments(mel_full, out["ids_slice"],
                                           hp.segment_size)
     loss_mel = torch.mean(torch.abs(mel_real - mel_hat)) * cfg.c_mel
-    loss_kl = losses.kl_loss(out["z_p"], out["logs_q"], out["m_p"],
-                             out["logs_p"], out["y_mask"]) * cfg.c_kl
+    loss_kl = losses.kl_loss(
+        *(out[k].float() for k in ("z_p", "logs_q", "m_p", "logs_p",
+                                   "y_mask"))) * cfg.c_kl
     # a SUM over the batch, as the reference (lightning.py:253)
-    loss_dur = torch.sum(out["l_length"])
+    loss_dur = torch.sum(out["l_length"]).float()
 
     _, y_d_gs, fmap_rs, fmap_gs = disc.multi_period_discriminator(
-        params_d, y, y_hat)
-    loss_fm = losses.feature_loss(fmap_rs, fmap_gs)
-    loss_gen, _ = losses.generator_loss(y_d_gs)
+        nn.cast_floating(params_d, dtype), y.to(dtype), y_hat)
+    loss_fm = losses.feature_loss(nn.cast_floating(fmap_rs, torch.float32),
+                                  nn.cast_floating(fmap_gs, torch.float32))
+    loss_gen, _ = losses.generator_loss(
+        nn.cast_floating(y_d_gs, torch.float32))
 
     total = loss_gen + loss_fm + loss_mel + loss_dur + loss_kl
     aux = {"loss_gen_all": total, "loss_mel": loss_mel, "loss_kl": loss_kl,
@@ -185,11 +247,16 @@ def generator_objective(params_g, params_d, batch: Dict[str, Tensor],
     return total, aux
 
 
-def discriminator_objective(params_d, y: Tensor, y_hat: Tensor) -> Tensor:
-    """LSGAN discriminator loss on real and (detached) generated audio."""
+def discriminator_objective(params_d, y: Tensor, y_hat: Tensor,
+                            dtype: torch.dtype = torch.float32) -> Tensor:
+    """LSGAN discriminator loss on real and (detached) generated audio,
+    computed in ``dtype``, the loss in float32."""
     y_d_rs, y_d_gs, _, _ = disc.multi_period_discriminator(
-        params_d, y.detach(), y_hat.detach())
-    loss_d, _, _ = losses.discriminator_loss(y_d_rs, y_d_gs)
+        nn.cast_floating(params_d, dtype), y.detach().to(dtype),
+        y_hat.detach().to(dtype))
+    loss_d, _, _ = losses.discriminator_loss(
+        nn.cast_floating(y_d_rs, torch.float32),
+        nn.cast_floating(y_d_gs, torch.float32))
     return loss_d
 
 
@@ -207,7 +274,7 @@ def _micro_grads(state: TrainState, batch: Dict[str, Tensor],
         if not eval_mode:
             grads_g = torch.autograd.grad(total, leaves(state.params_g))
         loss_d = discriminator_objective(state.params_d, aux["y"],
-                                         aux["y_hat"])
+                                         aux["y_hat"], compute_dtype(cfg))
         grads_d = None
         if not eval_mode:
             grads_d = torch.autograd.grad(loss_d, leaves(state.params_d))
@@ -215,6 +282,19 @@ def _micro_grads(state: TrainState, batch: Dict[str, Tensor],
                if key != "loss_disc_all"}
     metrics["loss_disc_all"] = loss_d.detach()
     return grads_g, grads_d, metrics
+
+
+def micro_generator(generator: Optional[torch.Generator], i: int
+                    ) -> Optional[torch.Generator]:
+    """The noise and dropout source of micro-batch ``i``: seeded from the
+    step generator's seed and ``i``, so a pure function of the step, as
+    the step generator is (``trainer.step_generator``). The JAX step folds
+    ``i`` into the step's key (``fold_in(rng, i)``); the draws cannot be
+    equal across the frameworks, the rule is the same."""
+    if generator is None:
+        return None
+    return torch.Generator(device=generator.device).manual_seed(
+        (generator.initial_seed() * 1_000_003 + i + 1) % (1 << 63))
 
 
 def _update(opt: torch.optim.Optimizer, params: List[Tensor],
@@ -245,11 +325,43 @@ def train_step(state: TrainState, batch: Dict[str, Tensor], hp: VitsHParams,
     runs the losses with dropout off and leaves the state unchanged
     (validation, lightning.py:282-306). The metrics are 0-d tensors on the
     device (reading them waits for the step).
+
+    ``cfg.grad_accum > 1`` splits the batch into that many micro-batches
+    (micro-batch ``i`` draws from :func:`micro_generator`) and averages
+    their gradients and metrics before the one update of each network; a
+    batch that does not divide raises, and so does injected ``noise``.
     """
-    grads_g, grads_d, metrics = _micro_grads(
-        state, batch, hp, cfg, eval_mode, generator=generator, noise=noise)
-    if eval_mode:
-        return state, metrics
+    accum = max(1, int(cfg.grad_accum)) if not eval_mode else 1
+    if accum == 1:
+        grads_g, grads_d, metrics = _micro_grads(
+            state, batch, hp, cfg, eval_mode, generator=generator,
+            noise=noise)
+        if eval_mode:
+            return state, metrics
+    else:
+        b = batch["phoneme_ids"].shape[0]
+        if b % accum:
+            raise ValueError(
+                f"batch size {b} is not divisible by grad_accum {accum}")
+        if noise is not None:
+            raise ValueError("injected noise takes grad_accum 1")
+        mb = b // accum
+        grads_g = grads_d = metrics = None
+        for i in range(accum):
+            micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
+            g_g, g_d, m = _micro_grads(state, micro, hp, cfg, False,
+                                       generator=micro_generator(generator,
+                                                                 i))
+            if grads_g is None:
+                grads_g, grads_d, metrics = list(g_g), list(g_d), m
+            else:
+                grads_g = [a + c for a, c in zip(grads_g, g_g)]
+                grads_d = [a + c for a, c in zip(grads_d, g_d)]
+                metrics = {k: metrics[k] + m[k] for k in metrics}
+        scale = 1.0 / accum
+        grads_g = [a * scale for a in grads_g]
+        grads_d = [a * scale for a in grads_d]
+        metrics = {k: v * scale for k, v in metrics.items()}
     _update(state.opt_g, leaves(state.params_g), grads_g, cfg, state.step)
     _update(state.opt_d, leaves(state.params_d), grads_d, cfg, state.step)
     state.step += 1

@@ -1044,3 +1044,136 @@ def test_arabic_voice_on_the_card(device, tmp_path):
     launches = chip_smoke.arabic_phase(torch, *files, 15, tmp_path,
                                        tag="card arabic")
     assert all(n > 0 for n in launches.values()), launches
+
+
+def _fake_vad(path):
+    """tests/test_vad_model.py's Silero-shaped graph: 20 * mean(|chunk|)."""
+    from phoonnx_tpu_torch.onnx.writer import write_onnx
+
+    write_onnx(str(path), initializers={"gain": np.asarray(20.0, np.float32)},
+               inputs=["input", "sr", "h", "c"],
+               outputs=["prob", "h_out", "c_out"],
+               nodes=[("Abs", ["input"], ["absin"]),
+                      ("ReduceMean", ["absin"], ["mean"]),
+                      ("Mul", ["mean", "gain"], ["prob"]),
+                      ("Identity", ["h"], ["h_out"]),
+                      ("Identity", ["c"], ["c_out"])])
+    return path
+
+
+@pytest.mark.parametrize("vad", ["energy", "silero"])
+def test_preprocess_on_the_card_matches_the_cpu(device, tmp_path,
+                                                monkeypatch, vad):
+    """``chip_smoke.preprocess_phase`` on a small corpus: the card's
+    dataset against the CPU's (the same rows, trimmed audio equal,
+    spectrograms within SPEC_TOL), with the energy VAD and with a Silero
+    model on the card's graph runner."""
+    import chip_smoke
+
+    if vad == "silero":
+        monkeypatch.setenv("PHOONNX_VAD_MODEL",
+                           str(_fake_vad(tmp_path / "vad.onnx")))
+    hp = model.VitsHParams.preset("medium")
+    corpus = chip_smoke.write_corpus(tmp_path / "corpus", hp, 6, 3)
+    chip_smoke.preprocess_phase(torch, corpus, tmp_path, hp.sample_rate,
+                                device, tag=f"card preprocess {vad}",
+                                max_workers=2)
+
+
+def _micro_batch(hp, device, n=4):
+    rng = np.random.default_rng(0)
+    t_y = 40
+    return {"phoneme_ids": torch.as_tensor(rng.integers(1, 32, (n, 10)),
+                                           device=device),
+            "phoneme_lengths": torch.tensor([10, 7, 9, 6][:n],
+                                            dtype=torch.int32, device=device),
+            "spec": torch.as_tensor(np.abs(rng.standard_normal(
+                (n, t_y, hp.spec_channels))).astype(np.float32) * 0.3,
+                device=device),
+            "spec_lengths": torch.tensor([40, 33, 36, 30][:n],
+                                         dtype=torch.int32, device=device),
+            "audio": torch.as_tensor((0.3 * rng.standard_normal(
+                (n, t_y * hp.hop_length))).astype(np.float32),
+                device=device)}
+
+
+def test_bf16_grad_accum_step_launches_mas(device):
+    """A bf16 step of two micro-batches launches kernel D once a
+    micro-batch, on f32 scores, and none of A, B, C."""
+    import chip_smoke
+    from phoonnx_tpu_torch.train import step
+
+    hp = model.VitsHParams.preset("micro", n_vocab=32)
+    cfg = step.TrainConfig(disc_periods=(2,), disc_channel_scale=4,
+                           compute_dtype="bfloat16", grad_accum=2)
+    state = step.init_train_state(hp, cfg, device=device)
+    kernels = chip_smoke.all_kernels()
+    chip_smoke.reset_launches(kernels)
+    state, metrics = step.train_step(
+        state, _micro_batch(hp, device), hp, cfg,
+        generator=torch.Generator(device=device).manual_seed(1))
+    assert all(torch.isfinite(v) for v in metrics.values())
+    assert chip_smoke.launch_counts(kernels) == {"A": 0, "B": 0, "C": 0,
+                                                 "D": 2}
+    assert all(t.dtype == torch.float32 for t in step.leaves(state.params_g))
+
+
+def test_remat_on_the_card(device, monkeypatch):
+    """remat's gradients against the plain step's on the card: equal but
+    for the order of cuDNN's weight-gradient sums, which two plain steps
+    share (the bound is the plain step against itself, at least
+    KERNEL_TOL relative); a checkpoint that redraws the dropout masks is
+    far outside it. Kernel D runs twice under remat (the recompute)."""
+    import chip_smoke
+    from phoonnx_tpu_torch.train import step
+
+    hp = model.VitsHParams.preset("micro", n_vocab=32)
+    state = step.init_train_state(hp, step.TrainConfig(
+        disc_periods=(2,), disc_channel_scale=4), device=device)
+    batch = _micro_batch(hp, device, n=2)
+    kernels = {"D": mas.__name__}
+
+    def grads(remat):
+        cfg = step.TrainConfig(disc_periods=(2,), disc_channel_scale=4,
+                               remat=remat)
+        chip_smoke.reset_launches(kernels)
+        g_g, _, _ = step._micro_grads(
+            state, batch, hp, cfg, False,
+            generator=torch.Generator(device=device).manual_seed(9))
+        return list(g_g), chip_smoke.launch_counts(kernels)["D"]
+
+    def worst(a, b):
+        return max(float((x - y).abs().max() / max(float(y.abs().max()),
+                                                   1e-12))
+                   for x, y in zip(a, b))
+
+    plain, d_plain = grads(False)
+    again, _ = grads(False)
+    remat, d_remat = grads(True)
+    tol = max(chip_smoke.KERNEL_TOL, 2 * worst(again, plain))
+    err = worst(remat, plain)
+    print(f"remat vs plain on the card {err:.3e}, plain vs plain "
+          f"{worst(again, plain):.3e}")
+    assert err <= tol and (d_plain, d_remat) == (1, 2)
+
+    from torch.utils.checkpoint import checkpoint as torch_checkpoint
+
+    monkeypatch.setattr(step, "_checkpointed_forward",
+                        lambda fn, gen: torch_checkpoint(
+                            fn, use_reentrant=False))
+    redrawn, _ = grads(True)
+    assert worst(redrawn, plain) > 10 * tol
+
+
+def test_pipeline_on_the_card(device, tmp_path):
+    """``chip_smoke.pipeline_phase`` at micro on a small corpus: every
+    check of the chip run's pipeline phase (card vs CPU preprocessing,
+    three epochs with their test audio and launch counts, the options'
+    steps, both exports served through A, B and C, the warm start)."""
+    import chip_smoke
+
+    paths, d = chip_smoke.pipeline_phase(
+        torch, tmp_path, 5, device, quality="micro", n_utts=14,
+        seconds=(0.4, 1.2), batch_size=2, tag="card pipeline")
+    assert d > 0 and all(n > 0 for counts in paths.values()
+                         for n in counts.values()), paths

@@ -8,7 +8,9 @@ rewritten to ``phoonnx_tpu_torch``. ``phonemizers/base.py``,
 ``onnx/aux_compile.py`` are trimmed copies, checked member by member with
 the members that differ named; ``onnx/executor.py`` is the original but
 for its two convolution handlers, which call torch where the original
-calls JAX.
+calls JAX. The training pipeline's host modules (``train/audio.py``,
+``train/preprocess.py``, ``train/export.py``, ``quantize.py``) are checked
+the same way, with the members they add named.
 """
 
 import ast
@@ -20,7 +22,7 @@ ROOT = Path(__file__).resolve().parent.parent
 JAX_PKG = ROOT / "phoonnx_tpu"
 PORT_PKG = ROOT / "phoonnx_tpu_torch"
 
-VERBATIM = ["config.py", "phoneme_ids.py", "util.py", "numbers.py",
+VERBATIM = ["version.py", "config.py", "phoneme_ids.py", "util.py", "numbers.py",
             "dates.py", "sentences.py", "langtags.py", "onnx/wire.py",
             "onnx/reader.py", "onnx/writer.py", "onnx/dequant.py",
             "onnx/builder.py", "onnx/vits_graph.py", "train/dataset.py",
@@ -219,3 +221,39 @@ def test_observability_copy(name):
     assert copy[name] == _rewrite(original[name])
     assert "enable_compilation_cache" not in copy
     assert {"device_trace", "device_memory_stats"} <= set(copy)
+
+
+@pytest.mark.parametrize("rel,differ,added", [
+    # the VAD model on a TorchGraphRunner with no degrade, and the cache
+    # written in a host half (workers) and a device half (spectrogram)
+    ("train/audio.py", {"SileroVoiceActivityDetector": ("__init__",
+                                                        "speech_probs"),
+                        "cache_norm_audio": None},
+     {"cache_paths", "read_for_cache", "write_cache"}),
+    # host-only workers, the card work in the parent, argparse
+    ("train/preprocess.py", {"phonemize_worker": None,
+                             "run_preprocess": None, "main": None}, set()),
+    # the port's checkpoint reader, argparse
+    ("train/export.py", {"run_export": None, "main": None}, set()),
+    # ValueError for click's exception, argparse
+    ("quantize.py", {"quantize_voice": None, "main": None}, set()),
+], ids=["audio", "preprocess", "export", "quantize"])
+def test_pipeline_copy(rel, differ, added):
+    """Every other top-level member, and every other method of a class
+    named in ``differ``, is the original's."""
+    original = _top_level(JAX_PKG / rel)
+    copy = _top_level(PORT_PKG / rel)
+    assert set(copy) == set(original) | set(added), \
+        set(copy) ^ (set(original) | set(added))
+    for name, src in original.items():
+        methods = differ.get(name, ())
+        if name not in differ:
+            assert copy[name] == _rewrite(src), (rel, name)
+        elif methods is None:
+            assert copy[name] != _rewrite(src), (rel, name)
+        else:
+            orig_m, copy_m = _methods(src), _methods(copy[name])
+            assert set(copy_m) == set(orig_m), (rel, name)
+            for m, m_src in orig_m.items():
+                same = copy_m[m] == _rewrite(m_src)
+                assert same == (m not in methods), (rel, name, m)

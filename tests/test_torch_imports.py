@@ -3,8 +3,8 @@
 (a) A fresh interpreter whose import system refuses ``jax``, ``jaxlib``
 and ``phoonnx_tpu`` (but not ``phoonnx_tpu_torch``) imports every module
 of the port, synthesizes, serves one seeded request through the batcher,
-takes one training step, runs an exported voice graph on the ONNX
-graph engine, phonemizes Arabic with mantoq and decodes with a micro
+takes one training step, exports its checkpoint and serves the voice,
+runs an exported voice graph on the ONNX graph engine, phonemizes Arabic with mantoq and decodes with a micro
 ByT5 G2P, on the CPU. (b) The entry points default to
 CUDA and raise without it; they never drop to the CPU on their own.
 """
@@ -47,7 +47,8 @@ for trained in ("ops.mas", "ops.stft", "models.vits.discriminator",
                 "onnx.aux_compile", "phonemizers.mul", "phonemizers.ar",
                 "phonemizers.ko", "thirdparty.mantoq", "thirdparty.kog2p",
                 "thirdparty.hangul2ipa", "thirdparty.tashkeel",
-                "thirdparty.phonikud"):
+                "thirdparty.phonikud", "version", "quantize", "train.audio",
+                "train.preprocess", "train.export"):
     assert "phoonnx_tpu_torch." + trained in names, trained
 
 import torch
@@ -71,6 +72,18 @@ batch = {"phoneme_ids": torch.randint(1, 32, (2, 7), generator=rng),
          "audio": torch.rand(2, 24 * hp.hop_length, generator=rng) - 0.5}
 state, metrics = step.train_step(state, batch, hp, cfg, generator=rng)
 assert state.step == 1 and all(torch.isfinite(v) for v in metrics.values())
+import json, tempfile
+from phoonnx_tpu_torch.train import checkpoint, export
+with tempfile.TemporaryDirectory() as tmp:
+    with open(tmp + "/config.json", "w") as f:
+        json.dump({"num_symbols": 32, "audio": {"sample_rate": 16000},
+                   "phoneme_type": "raw", "alphabet": "unicode"}, f)
+    ckpt = checkpoint.save(tmp, state, hp)
+    voice = export.run_export(ckpt, tmp + "/config.json", tmp + "/out",
+                              quality="micro")
+    from phoonnx_tpu_torch import TTSVoice
+    assert len(TTSVoice.load(str(voice), device="cpu").engine.synthesize_ids(
+        [1, 4, 5, 6, 2], seed=0)) > 0
 from phoonnx_tpu_torch.serve import DynamicBatcher
 batcher = DynamicBatcher(engine, max_batch=2, autostart=False)
 sub = batcher.submit([[1, 4, 5, 2], [1, 6, 2]], (0.667, 1.0, 0.8), seed=0)
