@@ -147,7 +147,17 @@ another sm_90a card) and the CUDA toolkit. The script
    utterance (C once a decoder stage) and wrote every WAV with no failure
    recorded, and that the checkpoint restores to equal tensors; then the
    micro overfit recipe of the JAX package's tests (250 steps on two
-   learnable utterances) held to that test's margins; then the training
+   learnable utterances) held to that test's margins; then data-parallel
+   training (``dp:`` lines): two ranks in processes of their own on the
+   card over gloo (NCCL takes a card a rank), medium, the dataset's first
+   global batch of 16, 8 rows a rank: the first step's averaged
+   gradients and losses against one process's step on the same batch
+   and seed (median leaf rel-L2 <= 1e-5, every leaf <= 3e-2, losses
+   within 1e-5), each rank's step ms and ``all_reduce`` ms and MiB
+   beside one process's, then one epoch of ``run_training`` on the two
+   ranks: parameters ``torch.equal`` across ranks, equal validation
+   losses, kernel D launched in both ranks (the counts come back from
+   the processes), A, B and C in rank 0's test audio only; then the training
    pipeline (``pipeline:`` lines) at ``medium``, batch 16: a raw LJ
    Speech-style corpus (``metadata.csv`` and 22050 Hz WAVs of the same 45
    tone utterances, grapheme texts) preprocessed by ``run_preprocess`` on
@@ -168,7 +178,8 @@ another sm_90a card) and the CUDA toolkit. The script
    audio and the exported voices included; a graph replay adds the
    launches of its capture; the bf16 builds ``A:fused_encoder_bf16`` etc.
    those of the bf16 paths) and the training runs (D: the two epochs, the
-   pipeline's epochs, option steps and warm start), and, last, one
+   pipeline's epochs, option steps and warm start, both data-parallel
+   ranks' epoch), and, last, one
    ``{"ok": true, "device": {...}}`` line.
 
 It exits non-zero, with no result line, when there is no CUDA device, when
@@ -180,11 +191,15 @@ import contextlib
 import ctypes
 import json
 import math
+import multiprocessing
+import os
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
 import time
+import traceback
 from functools import partial
 from pathlib import Path
 
@@ -4122,18 +4137,12 @@ def check_test_audio(run, audio, total, tag):
 def profile_train_step(torch, run, data: Path, seed: int):
     """One more medium training step under the profiler: the card's idle
     share of the step and kernel D's share of its device time."""
-    from phoonnx_tpu_torch.train.dataset import BucketedLoader, load_dataset
     from phoonnx_tpu_torch.train.step import (TrainConfig, batch_to_device,
                                               train_step)
     from phoonnx_tpu_torch.train.trainer import step_generator
 
     hp = run.hp
-    utts = load_dataset([data / "dataset.jsonl"])
-    loader = BucketedLoader(utts, batch_size=16,
-                            segment_size_frames=hp.segment_size,
-                            hop_length=hp.hop_length, seed=seed,
-                            spec_channels=hp.spec_channels)
-    batch = batch_to_device(next(iter(loader.epoch(epoch_index=0))), "cuda")
+    batch = batch_to_device(first_batch(data, hp, seed), "cuda")
     cfg = TrainConfig()
     dev = torch.device("cuda")
 
@@ -4150,6 +4159,361 @@ def profile_train_step(torch, run, data: Path, seed: int):
     print(f"profile: kernel D {d_us / 1e3:.4f} ms = "
           f"{d_us / max(busy_us, 1e-9):.5f} of the step's device time",
           flush=True)
+
+
+# ---------------------------------------------------------------------------
+# data-parallel training: two ranks on the one card, over gloo
+# ---------------------------------------------------------------------------
+
+DP_WORLD = 2
+# the two ranks' averaged first-step gradients against one process's on
+# the same global batch and seed: tests/test_multidevice_equivalence.py's
+# bars, the median at 1e-5 rather than 1e-6 because cuDNN takes other
+# float32 algorithms at batch 8 than at 16; the losses at rel 1e-5
+DP_GRAD_MEDIAN = 1e-5
+DP_GRAD_MAX = 3e-2
+DP_LOSS_RTOL = 1e-5
+DP_TIMED_STEPS = 3
+DP_TIMEOUT_S = 600
+
+
+def leaf_rel_l2(torch, want, got):
+    """(median, max) over leaves of ||got - want|| / ||want||, the
+    denominator floored at 1e-6 of the global norm of ``want``."""
+    norms = [float(torch.linalg.vector_norm(w.double())) for w in want]
+    floor = 1e-6 * (math.sqrt(sum(n * n for n in norms)) + 1e-12)
+    rel = sorted(float(torch.linalg.vector_norm((g - w).double()))
+                 / max(n, floor) for w, g, n in zip(want, got, norms))
+    return rel[len(rel) // 2], rel[-1]
+
+
+def first_batch(data: Path, hp, seed: int):
+    """The dataset's first batch of 16 (numpy), epoch 0's shuffle."""
+    from phoonnx_tpu_torch.train.dataset import BucketedLoader, load_dataset
+
+    loader = BucketedLoader(load_dataset([data / "dataset.jsonl"]),
+                            batch_size=16, segment_size_frames=hp.segment_size,
+                            hop_length=hp.hop_length, seed=seed,
+                            spec_channels=hp.spec_channels)
+    return next(iter(loader.epoch(epoch_index=0)))
+
+
+def equal_across(torch, tensors) -> bool:
+    """Every rank holds rank 0's bits of ``tensors``: rank 0's flat copy
+    is broadcast, each rank compares, the verdicts meet in an
+    ``all_reduce`` (MIN)."""
+    import torch.distributed as dist
+
+    with torch.no_grad():
+        flat = torch.cat([t.detach().reshape(-1) for t in tensors])
+        ref = flat.clone()
+        dist.broadcast(ref, 0)
+        ok = torch.tensor([float(torch.equal(ref, flat))],
+                          device=flat.device)
+        dist.all_reduce(ok, op=dist.ReduceOp.MIN)
+    return bool(ok.item())
+
+
+def timed_steps(torch, state, batch, hp, cfg, dev, seed, mesh, n):
+    """Host ms of ``n`` training steps (each ending in a synchronise), and
+    under ``mesh`` each step's ms and MiB in ``parallel.mesh.all_mean``
+    (the gradient, metric and denominator means)."""
+    from phoonnx_tpu_torch.parallel import mesh as dp
+    from phoonnx_tpu_torch.train import step
+    from phoonnx_tpu_torch.train.trainer import step_generator
+
+    mean = dp.all_mean
+    spent = {"ms": 0.0, "bytes": 0}
+
+    def timed_mean(group, tensors):
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        out = mean(group, tensors)
+        sync(torch, dev)
+        spent["ms"] += (time.perf_counter() - t0) * 1e3
+        spent["bytes"] += sum(t.numel() * t.element_size() for t in tensors)
+        return out
+
+    dp.all_mean = timed_mean
+    rows = []
+    try:
+        for i in range(n):
+            spent.update(ms=0.0, bytes=0)
+            sync(torch, dev)
+            t0 = time.perf_counter()
+            step.train_step(state, batch, hp, cfg, mesh=mesh,
+                            generator=step_generator(dev, seed, i + 1))
+            sync(torch, dev)
+            rows.append(((time.perf_counter() - t0) * 1e3, spent["ms"],
+                         spent["bytes"] / 2 ** 20))
+    finally:
+        dp.all_mean = mean
+    return rows
+
+
+def dp_rank_work(torch, rank: int, data: Path, data_dp: Path, seed: int,
+                 device: str, quality: str):
+    """One rank's checks and timings (see :func:`dp_phase`)."""
+    from phoonnx_tpu_torch.infer.engine import resolve_device
+    from phoonnx_tpu_torch.parallel import make_mesh, multihost, shard_batch
+    from phoonnx_tpu_torch.train import step
+    from phoonnx_tpu_torch.train.trainer import run_training, step_generator
+
+    dev = resolve_device(device)  # TF32 off on the card
+    check(multihost.initialize(backend="gloo"),
+          "the launcher's environment formed no process group")
+    mesh = make_mesh(device=dev)
+    hp = step_hparams(data, quality)
+    cfg = step.TrainConfig()
+    batch = first_batch(data, hp, seed)
+    rows = shard_batch(mesh, batch)
+    state = step.init_train_state(hp, cfg, torch.Generator().manual_seed(seed),
+                                  device=dev)
+    result = {"rank": rank, "rows": int(len(rows["spec"])),
+              "shape": list(batch["spec"].shape[:2]) + [
+                  int(batch["phoneme_ids"].shape[1])]}
+
+    # check 1: the first step's averaged gradients against one process's
+    if rank == 0:
+        g1, d1, m1 = step.step_grads(state, step.batch_to_device(batch, dev),
+                                     hp, cfg,
+                                     generator=step_generator(dev, seed, 0))
+    g2, d2, m2 = step.step_grads(state, step.batch_to_device(rows, dev), hp,
+                                 cfg, generator=step_generator(dev, seed, 0),
+                                 mesh=mesh)
+    result["grads_equal"] = equal_across(torch, list(g2) + list(d2))
+    if rank == 0:
+        result["check1"] = {
+            "g": leaf_rel_l2(torch, g1, g2), "d": leaf_rel_l2(torch, d1, d2),
+            "losses": {k: (float(m1[k]), float(m2[k])) for k in step.METRICS}}
+        del g1, d1
+    del g2, d2
+
+    # each rank's step, then (rank 0) one process's step on the batch
+    result["dp_steps"] = timed_steps(torch, state, step.batch_to_device(
+        rows, dev), hp, cfg, dev, seed, mesh, DP_TIMED_STEPS)
+    if rank == 0:
+        result["single_steps"] = [ms for ms, _, _ in timed_steps(
+            torch, state, step.batch_to_device(batch, dev), hp, cfg, dev,
+            seed, None, DP_TIMED_STEPS)]
+    del state
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # check 2: one epoch of run_training on the two ranks, the launches
+    # counted from 0 in each rank
+    kernels = all_kernels()
+    reset_launches(kernels)
+    t0 = time.perf_counter()
+    with TestAudioCounts(kernels) as audio:
+        run = run_training(str(data_dp), quality=quality, batch_size=16,
+                           max_epochs=1, seed=seed, log_every=1,
+                           device=device, backend="gloo")
+    sync(torch, dev)
+    result["epoch"] = {
+        "wall_s": time.perf_counter() - t0,
+        "launches": launch_counts(kernels), "test_audio": audio.inside,
+        "steps": [{k: r[k] for k in ("step", "ms", "loss_gen_all",
+                                     "loss_disc_all")} for r in run.steps],
+        "val": run.val_losses, "checkpoint": run.checkpoint,
+        "test_audio_dirs": [str(d) for d in run.test_audio_dirs],
+        "test_audio_errors": run.test_audio_errors,
+        "n_test": len(run.test_utterances),
+        "stages": len(run.hp.upsample_rates),
+        "params_equal": equal_across(torch, params_of(run.state))}
+    return result
+
+
+def dp_rank(rank: int, world: int, port: int, out: Path, data: Path,
+            data_dp: Path, seed: int, device: str, quality: str) -> None:
+    """A rank of the dp phase in its own process, with the environment
+    ``torch.distributed.run`` gives one; writes ``rank{r}.json`` (or the
+    traceback to ``rank{r}.err``)."""
+    import torch
+    import torch.distributed as dist
+
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                      RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank))
+    # each rank its share of the host's cores (torch.distributed.run gives
+    # its processes one thread each): OpenMP pools of every rank on every
+    # core slow the host's ops many times over
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    try:
+        result = dp_rank_work(torch, rank, data, data_dp, seed, device,
+                              quality)
+        (out / f"rank{rank}.json").write_text(json.dumps(result))
+    except BaseException:
+        (out / f"rank{rank}.err").write_text(traceback.format_exc())
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def run_ranks(target, world: int, out: Path, *args,
+              timeout: float = DP_TIMEOUT_S):
+    """``target(rank, world, port, out, *args)`` in ``world`` spawned
+    processes; stops the others when one fails (they would wait at their
+    next collective) and fails with its traceback. Returns each rank's
+    ``rank{r}.json``."""
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=target, args=(rank, world, port, out) + args)
+             for rank in range(world)]
+    for proc in procs:
+        proc.start()
+    deadline = time.monotonic() + timeout
+    try:
+        while any(p.is_alive() for p in procs):
+            if any(p.exitcode not in (None, 0) for p in procs):
+                break
+            check(time.monotonic() < deadline, f"ranks ran over {timeout} s")
+            time.sleep(0.1)
+    finally:
+        for proc in procs:
+            if proc.is_alive():
+                proc.terminate()
+            proc.join(30)
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+    for rank, proc in enumerate(procs):
+        err = out / f"rank{rank}.err"
+        check(proc.exitcode == 0, f"rank {rank} exited {proc.exitcode}: "
+              + (err.read_text() if err.exists() else "no traceback"))
+    return [json.loads((out / f"rank{r}.json").read_text())
+            for r in range(world)]
+
+
+def dp_phase(torch, data: Path, seed: int, card: str, device: str = "cuda:0",
+             quality: str = "medium", tag: str = "dp"):
+    """Data-parallel training on the one card: two ranks in processes of
+    their own on ``device``, over gloo (NCCL takes one card a rank), at
+    ``quality``, a global batch of 16 from the training phase's dataset
+    (8 rows a rank). Check 1: the first step's averaged gradients and
+    losses against one process's step on the same batch and seed, at the
+    DP_* bars. Each rank's step ms, the ``all_reduce`` ms and MiB a step,
+    beside one process's batch-16 step. Check 2: one epoch of
+    ``run_training`` on the two ranks: the parameters ``torch.equal``
+    across ranks after it, kernel D launched in both ranks (the counts
+    come back from the processes), rank 0's test audio launching A, B and
+    C as a one-process epoch does, rank 1 writing none. Returns each
+    kernel's launches in the epoch, summed over the ranks."""
+    from phoonnx_tpu_torch.train import step
+
+    t_phase = time.perf_counter()
+    out = ROOT / "build" / "chip_smoke" / "dp"
+    if out.exists():
+        shutil.rmtree(out)
+    # the epoch's dataset: the same utterances (the cached arrays are read
+    # where they are), its own checkpoints and test audio
+    data_dp = out / "dataset"
+    data_dp.mkdir(parents=True)
+    for name in ("config.json", "dataset.jsonl"):
+        shutil.copy(data / name, data_dp / name)
+    ranks = run_ranks(dp_rank, DP_WORLD, out, data, data_dp, seed, device,
+                      quality)
+    zero, one = ranks
+    b, t_y, t_x = zero["shape"]
+    print(f"{tag}: {DP_WORLD} ranks on {device} over gloo, {zero['rows']} "
+          f"rows each of a global batch of {b} ({t_y} frames, {t_x} "
+          f"phonemes); {card}", flush=True)
+
+    c1 = zero["check1"]
+    deltas = {k: (dp_v - one_v) / abs(one_v) if one_v else dp_v - one_v
+              for k, (one_v, dp_v) in c1["losses"].items()}
+    print(f"{tag}: check 1, first step vs one process: grads_g median leaf "
+          f"rel-L2 {c1['g'][0]:.3e}, max {c1['g'][1]:.3e}; grads_d median "
+          f"{c1['d'][0]:.3e}, max {c1['d'][1]:.3e}; loss deltas (relative) "
+          + ", ".join(f"{k} {v:.2e}" for k, v in deltas.items())
+          + f"; bars median <= {DP_GRAD_MEDIAN}, max <= {DP_GRAD_MAX}, "
+          f"losses <= {DP_LOSS_RTOL}; {card}", flush=True)
+    for key in ("g", "d"):
+        check(c1[key][0] <= DP_GRAD_MEDIAN,
+              f"{tag}: grads_{key} median leaf rel-L2 {c1[key][0]:.3e}")
+        check(c1[key][1] <= DP_GRAD_MAX,
+              f"{tag}: grads_{key} max leaf rel-L2 {c1[key][1]:.3e}")
+    for k, v in deltas.items():
+        check(abs(v) <= DP_LOSS_RTOL, f"{tag}: {k} differs by {v:.3e}")
+    check(zero["grads_equal"] and one["grads_equal"],
+          f"{tag}: the ranks' averaged gradients differ")
+
+    for r in ranks:
+        rows = r["dp_steps"]
+        print(f"{tag}: rank {r['rank']} step ms "
+              + " ".join(f"{ms:.3f}" for ms, _, _ in rows)
+              + "; all_reduce ms a step "
+              + " ".join(f"{ms:.3f}" for _, ms, _ in rows)
+              + f", {rows[-1][2]:.1f} MiB a step; {card}", flush=True)
+    print(f"{tag}: one process, batch {b}, step ms "
+          + " ".join(f"{ms:.3f}" for ms in zero["single_steps"])
+          + f"; {card}", flush=True)
+
+    epochs = [r["epoch"] for r in ranks]
+    for r, ep in zip(ranks, epochs):
+        print(f"{tag}: rank {r['rank']} epoch: {len(ep['steps'])} steps "
+              f"in {ep['wall_s']:.1f} s, step ms "
+              + " ".join(f"{s['ms']:.1f}" for s in ep["steps"])
+              + f", validation {ep['val']}, launches {ep['launches']}, "
+              f"in the test audio {ep['test_audio']}, checkpoint "
+              f"{Path(ep['checkpoint']).name if ep['checkpoint'] else None}"
+              f"; {card}", flush=True)
+        check(len(ep["steps"]) > 0, f"{tag}: rank {r['rank']} took no step")
+        check(all(math.isfinite(s[k]) for s in ep["steps"]
+                  for k in ("loss_gen_all", "loss_disc_all")),
+              f"{tag}: non-finite loss on rank {r['rank']}")
+        check(ep["launches"]["D"] > 0,
+              f"{tag}: kernel D was not launched in rank {r['rank']}")
+        check(ep["params_equal"], f"{tag}: parameters differ across ranks")
+    check(epochs[0]["val"] == epochs[1]["val"],
+          f"{tag}: validation losses differ {epochs[0]['val']} "
+          f"{epochs[1]['val']}")
+    check([s["step"] for s in epochs[0]["steps"]]
+          == [s["step"] for s in epochs[1]["steps"]],
+          f"{tag}: the ranks took other steps")
+    ep0, ep1 = epochs
+    want = {"A": ep0["n_test"], "B": ep0["n_test"],
+            "C": ep0["n_test"] * ep0["stages"]}
+    check(ep0["test_audio"] == {**want, "D": 0},
+          f"{tag}: rank 0's test audio launched {ep0['test_audio']}, "
+          f"wanted {want}")
+    check(not ep0["test_audio_errors"] and len(ep0["test_audio_dirs"]) == 1,
+          f"{tag}: rank 0's test audio {ep0['test_audio_dirs']} "
+          f"{ep0['test_audio_errors']}")
+    wavs = sorted(Path(ep0["test_audio_dirs"][0]).glob("test_*.wav"))
+    check(len(wavs) == ep0["n_test"], f"{tag}: {len(wavs)} test WAVs")
+    check(all(ep0["launches"][k] == want[k] for k in "ABC"),
+          f"{tag}: rank 0's steps launched A/B/C {ep0['launches']}")
+    check(not any(ep1["launches"][k] for k in "ABC")
+          and not ep1["test_audio_dirs"] and ep1["checkpoint"] is None,
+          f"{tag}: rank 1 wrote test audio or a checkpoint")
+    check(ep0["checkpoint"] is not None and Path(ep0["checkpoint"]).exists(),
+          f"{tag}: rank 0 wrote no checkpoint")
+    fresh = step.init_train_state(
+        step_hparams(data, quality), step.TrainConfig(),
+        torch.Generator().manual_seed(seed + 1))
+    from phoonnx_tpu_torch.train import checkpoint
+
+    checkpoint.restore(ep0["checkpoint"], fresh)
+    check(fresh.step == ep0["steps"][-1]["step"],
+          f"{tag}: the checkpoint restores step {fresh.step}")
+    launches = {k: ep0["launches"][k] + ep1["launches"][k] for k in "ABCD"}
+    print(f"{tag}: parameters torch.equal across ranks after the epoch; "
+          f"validation loss equal on both ranks; launches summed {launches};"
+          f" the phase took {time.perf_counter() - t_phase:.1f} s; {card}",
+          flush=True)
+    return launches
+
+
+def step_hparams(data: Path, quality: str):
+    """The hparams ``run_training`` builds for ``data`` at ``quality``."""
+    from phoonnx_tpu_torch.train.trainer import build_hparams
+
+    return build_hparams(json.loads((data / "config.json").read_text()),
+                         quality)
 
 
 # the micro overfit recipe of tests/test_overfit_tiny.py, copied
@@ -4799,6 +5163,10 @@ def main() -> None:
     paths["train medium-mb-istft test audio"] = mb_run["test_audio"]
     overfit_phase(torch, dev, args.seed)
     memory_line(torch, "training")
+    # data-parallel training: two ranks on the card over gloo; kernel D in
+    # both ranks' steps, A, B and C in rank 0's test audio
+    dp_launches = dp_phase(torch, data, args.seed, card)
+    paths["dp rank 0 test audio"] = {k: dp_launches[k] for k in "ABC"}
 
     # the training pipeline: preprocess, three epochs, export, serve;
     # each of its lines names the card and its power limit
@@ -4810,14 +5178,15 @@ def main() -> None:
 
     launches = {name: sum(counts[name] for counts in paths.values())
                 for name in ("A", "B", "C")}
-    launches["D"] = d_medium + d_mb + d_pipeline
+    launches["D"] = d_medium + d_mb + d_pipeline + dp_launches["D"]
     launches_bf16 = {name: sum(counts[name] for counts in paths_bf16.values())
                      for name in ("A", "B", "C")}
     for path, counts in {**paths, **paths_bf16}.items():
         print(f"launches: {path} {counts}", flush=True)
     print(f"launches: bf16 builds summed {launches_bf16}", flush=True)
     print(f"launches: training medium D={d_medium}, training "
-          f"medium-mb-istft D={d_mb}, pipeline D={d_pipeline}; summed "
+          f"medium-mb-istft D={d_mb}, pipeline D={d_pipeline}, "
+          f"data-parallel epoch D={dp_launches['D']} (both ranks); summed "
           f"{launches}", flush=True)
 
     jax_dir = "phoonnx_tpu/models/vits"

@@ -46,9 +46,16 @@ its key and the pool's size.
 
 Counts: ``Graphs.replays`` counts the replays of each key (a key's first
 call, which captures it, is not one), under the same lock.
+
+Collection: Python's cyclic collector is held off while a capture runs.
+A collection inside a capture would finalize whatever dead cycles hold,
+such as a dropped engine's graphs, and destroying a CUDA graph in the
+capturing thread invalidates the capture.
 """
 
 import collections
+import contextlib
+import gc
 import threading
 from typing import Dict, Optional, Sequence
 
@@ -58,6 +65,31 @@ from phoonnx_tpu_torch import cuda
 
 # byte alignment of each host input inside the staging buffer
 _ALIGN = 64
+
+# the captures in progress in the process, and whether the cyclic
+# collector was enabled before the first of them
+_NO_GC_LOCK = threading.Lock()
+_NO_GC = {"captures": 0, "was_enabled": False}
+
+
+@contextlib.contextmanager
+def _no_collection():
+    """Hold Python's cyclic collector off for a capture (the module
+    docstring's Collection); captures on several threads share the hold,
+    and the collector's state before the first is restored after the
+    last."""
+    with _NO_GC_LOCK:
+        if _NO_GC["captures"] == 0:
+            _NO_GC["was_enabled"] = gc.isenabled()
+            gc.disable()
+        _NO_GC["captures"] += 1
+    try:
+        yield
+    finally:
+        with _NO_GC_LOCK:
+            _NO_GC["captures"] -= 1
+            if _NO_GC["captures"] == 0 and _NO_GC["was_enabled"]:
+                gc.enable()
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -117,8 +149,9 @@ class CapturedProgram:
         try:
             # thread_local: another thread's CUDA calls (an allocation, a
             # copy) do not invalidate this capture
-            with torch.cuda.graph(self.graph, pool=pool, stream=stream,
-                                  capture_error_mode="thread_local"):
+            with _no_collection(), torch.cuda.graph(
+                    self.graph, pool=pool, stream=stream,
+                    capture_error_mode="thread_local"):
                 self.static_out = fn(*static)
         finally:
             self.launches = {k: n - before.get(k, 0)

@@ -281,8 +281,8 @@ def _draw(generator: Optional[torch.Generator], shape, dtype, device,
     if generator is None:
         raise ValueError(f"pass generator= or inject {what}")
     sample = torch.rand if uniform else torch.randn
-    noise = sample(shape, generator=generator, dtype=dtype,
-                   device=generator.device)
+    noise = nn.draw(sample, shape, generator, dtype=dtype,
+                    device=generator.device)
     return noise.to(device)
 
 
@@ -292,7 +292,8 @@ def train_forward(params, hp: VitsHParams, x_ids: Tensor, x_lengths: Tensor,
                   generator: Optional[torch.Generator] = None,
                   post_noise: Optional[Tensor] = None,
                   e_q: Optional[Tensor] = None,
-                  slice_u: Optional[Tensor] = None) -> Dict[str, Tensor]:
+                  slice_u: Optional[Tensor] = None,
+                  token_count: Optional[Tensor] = None) -> Dict[str, Tensor]:
     """Training forward pass (models.py:617-679).
 
     x_ids [B, T_x]; spec [B, T_y, C_spec]; lengths [B]. Returns the sliced
@@ -303,6 +304,10 @@ def train_forward(params, hp: VitsHParams, x_ids: Tensor, x_lengths: Tensor,
     ``e_q`` [B, T_x, 2] (the SDP's posterior sample) and ``slice_u`` [B]
     (uniform in [0, 1), scaled to the segment offsets); what is not
     injected, and every dropout mask, is drawn from ``generator``.
+
+    ``token_count``: the duration loss's denominator; None is this
+    batch's token count, ``sum(x_mask)``. Under data parallelism the step
+    passes the global batch's count over the number of ranks.
 
     Like the JAX training forward, every module runs in plain PyTorch ops
     except the alignment search (kernel D on the card): the encoder stack,
@@ -346,6 +351,7 @@ def train_forward(params, hp: VitsHParams, x_ids: Tensor, x_lengths: Tensor,
         attn = mas.maximum_path(neg_cent, attn_mask)
 
     w = torch.sum(attn, dim=1)[..., None]  # [B, T_x, 1] durations
+    tokens = torch.sum(x_mask.float()) if token_count is None else token_count
     if hp.use_sdp:
         if e_q is None:
             e_q = _draw(generator, (b, t_x, 2), spec.dtype, dev, "e_q")
@@ -353,13 +359,13 @@ def train_forward(params, hp: VitsHParams, x_ids: Tensor, x_lengths: Tensor,
             params["dp"], x, x_mask, w, e_q.to(dev, spec.dtype), g=g,
             p_dropout=0.5, **drop)
         # exact token count, the quotient in f32 as JAX promotes it
-        l_length = l_length.float() / torch.sum(x_mask.float())
+        l_length = l_length.float() / tokens
     else:
         logw_ = torch.log(w + 1e-6) * x_mask
         logw = duration.duration_predictor(params["dp"], x, x_mask, g=g,
                                            p_dropout=0.5, **drop)
         l_length = (torch.sum(torch.square(logw - logw_), dim=(1, 2)).float()
-                    / torch.sum(x_mask.float()))
+                    / tokens)
 
     # expand the prior over the alignment: [B, T_y, T_x] @ [B, T_x, C]
     m_p_exp = torch.matmul(attn, m_p)

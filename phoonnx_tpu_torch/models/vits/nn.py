@@ -102,6 +102,36 @@ def embedding(params, ids: Tensor) -> Tensor:
     return params["weight"][ids]
 
 
+class RowWindow(torch.Generator):
+    """A generator for rows ``[start, start + n)`` of a batch of ``total``
+    rows, starting from ``source``'s state: :func:`draw` makes each draw
+    at the whole batch's shape and keeps the window's rows. A
+    data-parallel rank so draws its rows of what one process draws for
+    the whole batch, as JAX's global key does for a sharded batch."""
+
+    def __new__(cls, source: torch.Generator, start: int, total: int):
+        return super().__new__(cls, device=source.device)
+
+    def __init__(self, source: torch.Generator, start: int, total: int):
+        self.set_state(source.get_state())
+        self.start, self.total = start, total
+
+
+def draw(sample, shape, generator: torch.Generator, **kw) -> Tensor:
+    """``sample(shape, generator=generator, **kw)`` for ``torch.rand`` or
+    ``torch.randn``; from a :class:`RowWindow`, the window's rows of the
+    draw at the whole batch's shape (``shape[0]`` is the window's
+    size)."""
+    if not isinstance(generator, RowWindow):
+        return sample(shape, generator=generator, **kw)
+    n = shape[0]
+    if generator.start + n > generator.total:
+        raise ValueError(f"rows [{generator.start}, {generator.start + n}) "
+                         f"of a batch of {generator.total}")
+    full = sample((generator.total, *shape[1:]), generator=generator, **kw)
+    return full[generator.start:generator.start + n]
+
+
 def dropout(x: Tensor, rate: float, generator: Optional[torch.Generator],
             deterministic: bool) -> Tensor:
     """Inverted dropout with its mask drawn from ``generator`` (which
@@ -110,7 +140,7 @@ def dropout(x: Tensor, rate: float, generator: Optional[torch.Generator],
     if deterministic or rate == 0.0 or generator is None:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    mask = draw(torch.rand, x.shape, generator, device=x.device) < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
                                                    device=x.device))
 

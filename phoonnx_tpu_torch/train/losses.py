@@ -1,6 +1,6 @@
 """VITS training losses (reference: phoonnx_train/vits/losses.py)."""
 
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -45,11 +45,15 @@ def generator_loss(generated_outputs: List[Tensor]
 
 
 def kl_loss(z_p: Tensor, logs_q: Tensor, m_p: Tensor, logs_p: Tensor,
-            z_mask: Tensor) -> Tensor:
+            z_mask: Tensor, count: Optional[Tensor] = None) -> Tensor:
     """Masked KL(q||p) between posterior sample and aligned prior.
 
     All tensors [B, T, C] except z_mask [B, T, 1] (losses.py:43-58).
+    ``count``: the denominator; None is this batch's frame count,
+    ``sum(z_mask)`` (under data parallelism the step passes the global
+    batch's count over the number of ranks).
     """
     kl = logs_p - logs_q - 0.5
     kl = kl + 0.5 * torch.square(z_p - m_p) * torch.exp(-2.0 * logs_p)
-    return torch.sum(kl * z_mask) / torch.sum(z_mask)
+    return torch.sum(kl * z_mask) / (torch.sum(z_mask) if count is None
+                                     else count)

@@ -14,6 +14,16 @@ averages the gradients of that many micro-batches before one update of
 each network; ``remat`` recomputes the generator forward in the backward
 pass (``torch.utils.checkpoint``). ``mas_impl`` and ``data_axis_size``
 were TPU policy and bookkeeping and have no counterpart.
+
+Data parallelism (``mesh``, ``parallel/mesh.py``) computes the JAX step's
+math under a mesh, which is the single-device step's on the global batch
+and key (``tests/test_multidevice_equivalence.py``): each rank holds its
+rows of the global batch (of each global micro-batch, under
+``grad_accum``), draws its rows of the noise and dropout masks that one
+process draws for the whole batch (``nn.RowWindow``), divides the KL and
+the duration loss by the global batch's frame and token counts over the
+number of ranks (:func:`denominators`), and averages its gradients and
+metrics across ranks before the clip and the update.
 """
 
 from typing import Any, Dict, Iterator, List, NamedTuple, Optional, Tuple
@@ -26,6 +36,7 @@ from phoonnx_tpu_torch.models.vits import model as vits_model
 from phoonnx_tpu_torch.models.vits import nn
 from phoonnx_tpu_torch.models.vits.model import VitsHParams
 from phoonnx_tpu_torch.ops import stft
+from phoonnx_tpu_torch.parallel import mesh as dp
 from phoonnx_tpu_torch.train import losses
 
 Tensor = torch.Tensor
@@ -184,15 +195,33 @@ def _checkpointed_forward(forward, generator: Optional[torch.Generator]):
     return checkpoint(run, use_reentrant=False)
 
 
+def denominators(batch: Dict[str, Tensor], mesh: "dp.Mesh"
+                 ) -> Tuple[Tensor, Tensor]:
+    """(tokens, frames): the duration loss's and the KL's denominators
+    under data parallelism, the global batch's token and frame counts (the
+    masks' sums) over the number of ranks. Each rank's objective is then
+    the number of ranks times its share of the global objective, and the
+    mean of the ranks' gradients is the gradient one process takes on the
+    whole batch. One ``all_reduce``; the counts need no gradient."""
+    t_x, t_y = batch["phoneme_ids"].shape[1], batch["spec"].shape[1]
+    local = torch.stack([
+        torch.clamp(batch["phoneme_lengths"], max=t_x).sum(),
+        torch.clamp(batch["spec_lengths"], max=t_y).sum()]).float()
+    tokens, frames = dp.all_mean(mesh, [local])[0]
+    return tokens, frames
+
+
 def generator_objective(params_g, params_d, batch: Dict[str, Tensor],
                         hp: VitsHParams, cfg: TrainConfig,
                         deterministic: bool,
                         generator: Optional[torch.Generator] = None,
-                        noise: Optional[Dict[str, Tensor]] = None):
+                        noise: Optional[Dict[str, Tensor]] = None,
+                        mesh: Optional["dp.Mesh"] = None):
     """(total generator loss, aux): the training forward, the mel, KL,
     duration, feature-matching and adversarial terms (step.py:161-208).
     ``noise`` may inject ``post_noise``, ``e_q`` and ``slice_u`` into
-    :func:`model.train_forward`.
+    :func:`model.train_forward`. Under ``mesh`` the KL and the duration
+    loss take the global :func:`denominators`.
 
     In bf16 (``cfg.compute_dtype``) the parameters and the batch are cast
     inside the objective, so the gradients land on the float32 leaves;
@@ -200,6 +229,9 @@ def generator_objective(params_g, params_d, batch: Dict[str, Tensor],
     ``cfg.remat`` the training forward is checkpointed."""
     dtype = compute_dtype(cfg)
     cast_batch = nn.cast_floating(batch, dtype)
+    tokens = frames = None
+    if mesh is not None:
+        tokens, frames = denominators(batch, mesh)
 
     def forward():
         return vits_model.train_forward(
@@ -207,7 +239,7 @@ def generator_objective(params_g, params_d, batch: Dict[str, Tensor],
             cast_batch["phoneme_ids"], cast_batch["phoneme_lengths"],
             cast_batch["spec"], cast_batch["spec_lengths"],
             sid=cast_batch.get("sid"), deterministic=deterministic,
-            generator=generator, **(noise or {}))
+            generator=generator, token_count=tokens, **(noise or {}))
 
     if cfg.remat and torch.is_grad_enabled():
         out = _checkpointed_forward(forward, generator)
@@ -229,7 +261,7 @@ def generator_objective(params_g, params_d, batch: Dict[str, Tensor],
     loss_mel = torch.mean(torch.abs(mel_real - mel_hat)) * cfg.c_mel
     loss_kl = losses.kl_loss(
         *(out[k].float() for k in ("z_p", "logs_q", "m_p", "logs_p",
-                                   "y_mask"))) * cfg.c_kl
+                                   "y_mask")), count=frames) * cfg.c_kl
     # a SUM over the batch, as the reference (lightning.py:253)
     loss_dur = torch.sum(out["l_length"]).float()
 
@@ -263,13 +295,16 @@ def discriminator_objective(params_d, y: Tensor, y_hat: Tensor,
 def _micro_grads(state: TrainState, batch: Dict[str, Tensor],
                  hp: VitsHParams, cfg: TrainConfig, eval_mode: bool,
                  generator: Optional[torch.Generator] = None,
-                 noise: Optional[Dict[str, Tensor]] = None):
+                 noise: Optional[Dict[str, Tensor]] = None,
+                 mesh: Optional["dp.Mesh"] = None):
     """(grads_g, grads_d, metrics) for one batch, no update; the grads are
-    None in eval mode (dropout off, no graph)."""
+    None in eval mode (dropout off, no graph). Under ``mesh`` they are
+    this rank's, not yet averaged."""
     with torch.set_grad_enabled(not eval_mode):
         total, aux = generator_objective(
             state.params_g, state.params_d, batch, hp, cfg,
-            deterministic=eval_mode, generator=generator, noise=noise)
+            deterministic=eval_mode, generator=generator, noise=noise,
+            mesh=mesh)
         grads_g = None
         if not eval_mode:
             grads_g = torch.autograd.grad(total, leaves(state.params_g))
@@ -311,10 +346,71 @@ def _update(opt: torch.optim.Optimizer, params: List[Tensor],
     opt.zero_grad(set_to_none=True)
 
 
+def step_grads(state: TrainState, batch: Dict[str, Tensor],
+               hp: VitsHParams, cfg: TrainConfig,
+               generator: Optional[torch.Generator] = None,
+               eval_mode: bool = False,
+               noise: Optional[Dict[str, Tensor]] = None,
+               mesh: Optional["dp.Mesh"] = None):
+    """(grads_g, grads_d, metrics) of one step, no update: what
+    :func:`train_step` applies (the grads are None in eval mode).
+
+    ``cfg.grad_accum > 1`` splits the batch into that many micro-batches
+    (micro-batch ``i`` draws from :func:`micro_generator`) and averages
+    their gradients and metrics; a batch that does not divide raises, and
+    so does injected ``noise``.
+
+    ``mesh``: data parallelism. ``batch`` (and ``noise``) are this rank's
+    rows of the global batch, laid out by ``parallel.shard_batch`` with
+    the same ``grad_accum``; the draws are this rank's rows of one
+    process's draws for the whole batch (``nn.RowWindow``), and the
+    gradients and metrics are the means across ranks, the same bits on
+    every rank.
+    """
+    accum = max(1, int(cfg.grad_accum)) if not eval_mode else 1
+    b = batch["phoneme_ids"].shape[0]
+    if b % accum:
+        raise ValueError(
+            f"batch size {b} is not divisible by grad_accum {accum}")
+    if accum > 1 and noise is not None:
+        raise ValueError("injected noise takes grad_accum 1")
+    mb = b // accum
+    grads_g = grads_d = metrics = None
+    for i in range(accum):
+        micro = batch if accum == 1 else {
+            k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
+        gen = generator if accum == 1 else micro_generator(generator, i)
+        if mesh is not None and gen is not None:
+            gen = nn.RowWindow(gen, mesh.rank * mb, mesh.size * mb)
+        g_g, g_d, m = _micro_grads(state, micro, hp, cfg, eval_mode,
+                                   generator=gen, noise=noise, mesh=mesh)
+        if metrics is None:
+            grads_g, grads_d, metrics = g_g, g_d, m
+        else:
+            grads_g = [a + c for a, c in zip(grads_g, g_g)]
+            grads_d = [a + c for a, c in zip(grads_d, g_d)]
+            metrics = {k: metrics[k] + m[k] for k in metrics}
+    if accum > 1:
+        scale = 1.0 / accum
+        grads_g = [a * scale for a in grads_g]
+        grads_d = [a * scale for a in grads_d]
+        metrics = {k: v * scale for k, v in metrics.items()}
+    if mesh is not None:
+        keys = list(metrics)
+        values = dp.all_mean(mesh, [torch.stack([metrics[k]
+                                                 for k in keys])])[0]
+        metrics = dict(zip(keys, values.unbind()))
+        if not eval_mode:
+            grads_g = dp.all_mean(mesh, grads_g)
+            grads_d = dp.all_mean(mesh, grads_d)
+    return grads_g, grads_d, metrics
+
+
 def train_step(state: TrainState, batch: Dict[str, Tensor], hp: VitsHParams,
                cfg: TrainConfig, generator: Optional[torch.Generator] = None,
                eval_mode: bool = False,
-               noise: Optional[Dict[str, Tensor]] = None
+               noise: Optional[Dict[str, Tensor]] = None,
+               mesh: Optional["dp.Mesh"] = None
                ) -> Tuple[TrainState, Dict[str, Tensor]]:
     """One G+D update, in place on ``state``; returns (state, metrics).
 
@@ -324,44 +420,14 @@ def train_step(state: TrainState, batch: Dict[str, Tensor], hp: VitsHParams,
     ``generator`` draws the noise and dropout masks. ``eval_mode=True``
     runs the losses with dropout off and leaves the state unchanged
     (validation, lightning.py:282-306). The metrics are 0-d tensors on the
-    device (reading them waits for the step).
-
-    ``cfg.grad_accum > 1`` splits the batch into that many micro-batches
-    (micro-batch ``i`` draws from :func:`micro_generator`) and averages
-    their gradients and metrics before the one update of each network; a
-    batch that does not divide raises, and so does injected ``noise``.
+    device (reading them waits for the step). ``grad_accum``, ``noise``
+    and ``mesh`` as :func:`step_grads`; under ``mesh`` every rank applies
+    the same averaged gradients, so the replicas stay equal.
     """
-    accum = max(1, int(cfg.grad_accum)) if not eval_mode else 1
-    if accum == 1:
-        grads_g, grads_d, metrics = _micro_grads(
-            state, batch, hp, cfg, eval_mode, generator=generator,
-            noise=noise)
-        if eval_mode:
-            return state, metrics
-    else:
-        b = batch["phoneme_ids"].shape[0]
-        if b % accum:
-            raise ValueError(
-                f"batch size {b} is not divisible by grad_accum {accum}")
-        if noise is not None:
-            raise ValueError("injected noise takes grad_accum 1")
-        mb = b // accum
-        grads_g = grads_d = metrics = None
-        for i in range(accum):
-            micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
-            g_g, g_d, m = _micro_grads(state, micro, hp, cfg, False,
-                                       generator=micro_generator(generator,
-                                                                 i))
-            if grads_g is None:
-                grads_g, grads_d, metrics = list(g_g), list(g_d), m
-            else:
-                grads_g = [a + c for a, c in zip(grads_g, g_g)]
-                grads_d = [a + c for a, c in zip(grads_d, g_d)]
-                metrics = {k: metrics[k] + m[k] for k in metrics}
-        scale = 1.0 / accum
-        grads_g = [a * scale for a in grads_g]
-        grads_d = [a * scale for a in grads_d]
-        metrics = {k: v * scale for k, v in metrics.items()}
+    grads_g, grads_d, metrics = step_grads(state, batch, hp, cfg, generator,
+                                           eval_mode, noise, mesh)
+    if eval_mode:
+        return state, metrics
     _update(state.opt_g, leaves(state.params_g), grads_g, cfg, state.step)
     _update(state.opt_d, leaves(state.params_d), grads_d, cfg, state.step)
     state.step += 1

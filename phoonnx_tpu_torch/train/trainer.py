@@ -13,10 +13,26 @@ Usage:
         --quality medium --batch-size 16 --max-epochs 1000
 
 It runs on the GPU by default and raises without one; ``--device cpu`` is
-the caller's explicit choice. Not ported yet (ROADMAP.md, port queue item
-7): data-parallel training. Multi-host meshes, the MAS implementation
-choice (``--mas-impl``) and XLA layout choices (``--auto-layouts``) were
-TPU policy and have no counterpart.
+the caller's explicit choice.
+
+Data-parallel training (ROADMAP.md, port queue item 7; the JAX trainer's
+mesh path, ``trainer.py:211-216, 271-479``), N processes a host, one GPU
+each:
+
+    python -m torch.distributed.run --nproc-per-node N \\
+        -m phoonnx_tpu_torch.train.trainer --dataset-dir out/ \\
+        --quality medium --batch-size 16
+
+Each rank loads the same batches and keeps its rows of each
+(``parallel/mesh.py``); the step averages the gradients across ranks, so
+the run computes the single-process step on the global batch. Rank r
+runs on ``cuda:LOCAL_RANK`` unless ``--device`` names one. The backend is
+nccl on GPUs and gloo on the CPU; ranks that share one GPU need
+``--backend gloo``. Rank 0 alone logs, writes the checkpoints, each
+epoch's test audio and the ``--profile-dir`` trace. The MAS
+implementation choice (``--mas-impl``), XLA layout choices
+(``--auto-layouts``) and tensor-parallel meshes were TPU policy and have
+no counterpart.
 
 The training steps never launch kernels A, B or C (the training forward
 runs their plain, differentiable versions); the test audio, which is
@@ -26,6 +42,7 @@ synthesis, does.
 import argparse
 import json
 import logging
+import os
 import time
 import wave
 from dataclasses import dataclass, field
@@ -40,6 +57,8 @@ from phoonnx_tpu_torch.infer.engine import resolve_device
 from phoonnx_tpu_torch.models.vits import model as vits_model
 from phoonnx_tpu_torch.models.vits.model import VitsHParams
 from phoonnx_tpu_torch.observability import device_trace
+from phoonnx_tpu_torch.parallel import (all_mean, make_mesh, multihost,
+                                        shard_batch, shard_train_state)
 from phoonnx_tpu_torch.train import checkpoint as ckpt
 from phoonnx_tpu_torch.train.dataset import (BucketedLoader, Utterance,
                                              load_dataset, train_val_split)
@@ -76,17 +95,21 @@ def step_generator(device, seed: int, step: int) -> torch.Generator:
 
 def evaluate(state: TrainState, loader: BucketedLoader, hp: VitsHParams,
              cfg: TrainConfig, device, max_batches: int = 8,
-             seed: int = 0) -> float:
+             seed: int = 0, mesh=None) -> float:
     """Mean COMBINED (generator + discriminator) loss over validation
     batches, no updates: the reference's validation_step logs
-    loss_gen_all + loss_disc_all (lightning.py:282-306)."""
+    loss_gen_all + loss_disc_all (lightning.py:282-306). Under ``mesh``
+    each rank takes its rows and the losses are the global batch's, the
+    same on every rank."""
     total, count = 0.0, 0
     for i, batch in enumerate(loader.epoch()):
         if i >= max_batches:
             break
+        if mesh is not None:
+            batch = shard_batch(mesh, batch)
         _, metrics = train_step(state, batch_to_device(batch, device), hp,
                                 cfg, generator=step_generator(device, seed, i),
-                                eval_mode=True)
+                                eval_mode=True, mesh=mesh)
         total += float(metrics["loss_gen_all"]) + float(
             metrics["loss_disc_all"])
         count += 1
@@ -208,7 +231,8 @@ def run_training(
     resume_from_checkpoint: Optional[str] = None,
     resume_from_single_speaker: Optional[str] = None,
     log_every: int = 50,
-    device: Optional[str] = "cuda",
+    device: Optional[str] = None,
+    backend: Optional[str] = None,
 ) -> TrainRun:
     """Train on ``dataset_dir`` (``config.json`` + ``dataset.jsonl`` with
     cached ``.npy`` audio and spectrograms). Each step ends by reading its
@@ -220,8 +244,31 @@ def run_training(
     (``checkpoint.load_generator_warm_start``). ``profile_dir``: where a
     trace of ``profile_steps`` steps is written. After every epoch the
     held-out test utterances are synthesized under
-    ``<dataset_dir>/test_audio/epoch_N/``."""
+    ``<dataset_dir>/test_audio/epoch_N/``.
+
+    ``device``: None is the GPU (``cuda:LOCAL_RANK`` in a data-parallel
+    launch); without one this raises. Under a launcher's environment
+    (``parallel.multihost.initialize``) the run is data-parallel over its
+    processes: ``backend`` None is nccl on a GPU, gloo on the CPU; ranks
+    that share one GPU must name ``"gloo"``. A ``batch_size`` that does not
+    split into the ranks' ``grad_accum`` micro-batches raises before the
+    first step; rank 0 alone logs and writes checkpoints, test audio and
+    the trace (another rank's run has no checkpoint and no test audio),
+    and every rank returns once they are written."""
+    if device is None and "LOCAL_RANK" in os.environ:
+        device = f"cuda:{multihost.local_rank()}"
     dev = resolve_device(device)
+    mesh = None
+    if multihost.initialize(backend=backend or (
+            "nccl" if dev.type == "cuda" else "gloo")):
+        mesh = make_mesh(device=dev)
+    ranks = mesh.size if mesh is not None else 1
+    if batch_size % (ranks * max(1, grad_accum)):
+        raise ValueError(
+            f"batch size {batch_size} does not split into {ranks} rank(s) x "
+            f"grad_accum {grad_accum} micro-batches of equal size")
+    main_rank = mesh is None or mesh.rank == 0
+    log = LOG.info if main_rank else LOG.debug
     dataset_path = Path(dataset_dir)
     with open(dataset_path / "config.json", encoding="utf-8") as f:
         config = json.load(f)
@@ -231,7 +278,8 @@ def run_training(
                               max_phoneme_ids=max_phoneme_ids)
     train_utts, val_utts, test_utts = train_val_split(
         utterances, validation_split, num_test_examples, seed=seed)
-    LOG.info("train=%d val=%d on %s", len(train_utts), len(val_utts), dev)
+    log("train=%d val=%d on %s, %d rank(s)", len(train_utts), len(val_utts),
+        dev, ranks)
 
     make_loader = partial(
         BucketedLoader, batch_size=batch_size,
@@ -252,17 +300,22 @@ def run_training(
     ckpt_dir = dataset_path / "checkpoints"
     if resume_from_checkpoint:
         state = ckpt.restore(resume_from_checkpoint, state)
-        LOG.info("Resumed from %s at step %d", resume_from_checkpoint,
-                 state.step)
+        log("Resumed from %s at step %d", resume_from_checkpoint, state.step)
     elif resume_from_single_speaker:
         # Warm start: import generator weights, dropping speaker-conditioning
         # layers that do not exist in the single-speaker checkpoint
         # (phoonnx_train/train.py:131-144).
         ckpt.load_generator_warm_start(resume_from_single_speaker, hp,
                                        state.params_g)
-        LOG.info("Warm-started generator from %s", resume_from_single_speaker)
+        log("Warm-started generator from %s", resume_from_single_speaker)
+    if mesh is not None:
+        # every rank holds rank 0's parameters and moments (JAX
+        # replicates the state over the mesh, trainer.py:297)
+        shard_train_state(mesh, state)
 
     run = TrainRun(state=state, hp=hp, test_utterances=test_utts)
+    if not main_rank:
+        profile_dir = None
     profiling = None  # the open device_trace of profile_steps steps
     steps_this_run = 0  # the trace starts after two warm steps of this run
     # checkpoints are written at epoch boundaries, so a restored step
@@ -272,6 +325,8 @@ def run_training(
     for epoch in range(start_epoch, max_epochs):
         epoch_start = time.perf_counter()
         for batch in train_loader.epoch(prefetch=2, epoch_index=epoch):
+            if mesh is not None:
+                batch = shard_batch(mesh, batch, grad_accum)
             if (profile_dir is not None and profiling is None
                     and steps_this_run >= 2):
                 profiling = device_trace(profile_dir)
@@ -280,7 +335,7 @@ def run_training(
             t0 = time.perf_counter()
             gen = step_generator(dev, seed + 1, state.step)
             state, metrics = train_step(state, batch_to_device(batch, dev),
-                                        hp, cfg, generator=gen)
+                                        hp, cfg, generator=gen, mesh=mesh)
             values = torch.stack([metrics[k] for k in METRICS]).tolist()
             record = {"epoch": epoch, "step": state.step,
                       "ms": (time.perf_counter() - t0) * 1e3,
@@ -291,20 +346,18 @@ def run_training(
                 profiling, profile_dir = None, None
             run.steps.append(record)
             if state.step % log_every == 0:
-                LOG.info("epoch %d step %d loss_g=%.3f loss_d=%.3f mel=%.3f "
-                         "kl=%.3f dur=%.3f", epoch, state.step,
-                         record["loss_gen_all"], record["loss_disc_all"],
-                         record["loss_mel"], record["loss_kl"],
-                         record["loss_dur"])
-        LOG.info("epoch %d done in %.1fs", epoch,
-                 time.perf_counter() - epoch_start)
+                log("epoch %d step %d loss_g=%.3f loss_d=%.3f mel=%.3f "
+                    "kl=%.3f dur=%.3f", epoch, state.step,
+                    record["loss_gen_all"], record["loss_disc_all"],
+                    record["loss_mel"], record["loss_kl"], record["loss_dur"])
+        log("epoch %d done in %.1fs", epoch, time.perf_counter() - epoch_start)
 
         if val_loader is not None:
-            val_loss = evaluate(state, val_loader, hp, cfg, dev)
+            val_loss = evaluate(state, val_loader, hp, cfg, dev, mesh=mesh)
             run.val_losses.append(val_loss)
-            LOG.info("epoch %d val_loss=%.3f", epoch, val_loss)
+            log("epoch %d val_loss=%.3f", epoch, val_loss)
 
-        if test_utts:
+        if test_utts and main_rank:
             # progress audio from the held-out test utterances after each
             # validation (the reference's validation_step generates these,
             # lightning.py:286-304); WAVs under <dataset>/test_audio/epoch_N/
@@ -315,12 +368,17 @@ def run_training(
                 for err in write_test_audio(state.params_g, hp, test_utts,
                                             out)]
 
-        if (epoch + 1) % checkpoint_epochs == 0:
+        if (epoch + 1) % checkpoint_epochs == 0 and main_rank:
+            # the state is replicated: rank 0's copy is the global state
             run.checkpoint = ckpt.save(str(ckpt_dir), state, hp, config)
-            LOG.info("saved checkpoint: %s", run.checkpoint)
+            log("saved checkpoint: %s", run.checkpoint)
     if profiling is not None:
         # the run ended before profile_steps completed: write the trace
         profiling.__exit__(None, None, None)
+    if mesh is not None:
+        # every rank returns once rank 0's last checkpoint is written, so
+        # that a resume that follows reads a whole file
+        all_mean(mesh, [torch.zeros(1, device=dev)])
     return run
 
 
@@ -358,13 +416,23 @@ def main(argv=None) -> None:
                         dest="resume_from_single_speaker", default=None,
                         help="Warm-start the generator from an exported "
                              ".onnx voice or a torch Lightning .ckpt")
-    parser.add_argument("--device", default="cuda",
-                        help="torch device; 'cpu' runs the plain versions")
+    parser.add_argument("--device", default=None,
+                        help="torch device (default: the GPU, cuda:LOCAL_RANK "
+                             "under torch.distributed.run); 'cpu' runs the "
+                             "plain versions")
+    parser.add_argument("--backend", default=None, choices=["nccl", "gloo"],
+                        help="torch.distributed backend of a data-parallel "
+                             "launch (default: nccl on GPUs, gloo on the "
+                             "CPU; gloo for ranks that share one GPU)")
     parser.add_argument("--debug", action="store_true")
     args = vars(parser.parse_args(argv))
     debug = args.pop("debug")
     logging.basicConfig(level=logging.DEBUG if debug else logging.INFO)
-    run_training(**args)
+    try:
+        run_training(**args)
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

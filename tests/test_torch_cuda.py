@@ -1177,3 +1177,170 @@ def test_pipeline_on_the_card(device, tmp_path):
         seconds=(0.4, 1.2), batch_size=2, tag="card pipeline")
     assert d > 0 and all(n > 0 for counts in paths.values()
                          for n in counts.values()), paths
+
+
+def _dp_rank(rank, world, port, out, backend, devices):
+    """A rank of a data-parallel step on the card: the medium preset, a
+    global batch of 4 (synthetic), its rows' averaged gradients; rank 0
+    also takes one process's step on the whole batch and compares. A
+    group that refuses its devices records the refusal."""
+    import traceback
+
+    import chip_smoke
+    from phoonnx_tpu_torch.parallel import make_mesh, multihost, shard_batch
+    from phoonnx_tpu_torch.train import step
+
+    result = {}
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        multihost.initialize(f"127.0.0.1:{port}", world, rank,
+                             backend=backend)
+        try:
+            mesh = make_mesh(device=devices[rank])
+        except ValueError as exc:
+            result["refused"] = str(exc)
+        else:
+            dev = mesh.device
+            hp = model.VitsHParams.preset("medium", n_vocab=40)
+            cfg = step.TrainConfig()
+            rng = np.random.default_rng(3)
+            lengths = [(32, 128), (25, 101), (30, 117), (20, 90)]
+            spec = np.abs(rng.standard_normal((4, 128, hp.spec_channels))
+                          ).astype(np.float32) * 0.3
+            batch = {
+                "phoneme_ids": rng.integers(1, 40, (4, 32)).astype(np.int32),
+                "phoneme_lengths": np.asarray([x for x, _ in lengths],
+                                              np.int32),
+                "spec": spec * (np.arange(128)[None, :, None] < np.asarray(
+                    [y for _, y in lengths])[:, None, None]),
+                "spec_lengths": np.asarray([y for _, y in lengths],
+                                           np.int32),
+                "audio": (0.3 * rng.standard_normal((4, 128 * 256))
+                          ).astype(np.float32)}
+            state = step.init_train_state(
+                hp, cfg, torch.Generator().manual_seed(0), device=dev)
+
+            def gen():
+                return torch.Generator(device=dev).manual_seed(5)
+
+            if rank == 0:
+                g1, d1, m1 = step.step_grads(
+                    state, step.batch_to_device(batch, dev), hp, cfg,
+                    generator=gen())
+            kernels = chip_smoke.all_kernels()
+            chip_smoke.reset_launches(kernels)
+            g2, d2, m2 = step.step_grads(
+                state, step.batch_to_device(shard_batch(mesh, batch), dev),
+                hp, cfg, generator=gen(), mesh=mesh)
+            result["D"] = chip_smoke.launch_counts(kernels)["D"]
+            result["equal"] = chip_smoke.equal_across(torch,
+                                                      list(g2) + list(d2))
+            if rank == 0:
+                result["g"] = chip_smoke.leaf_rel_l2(torch, g1, g2)
+                result["d"] = chip_smoke.leaf_rel_l2(torch, d1, d2)
+                result["losses"] = {k: (float(m1[k]), float(m2[k]))
+                                    for k in step.METRICS}
+        torch.save(result, out / f"rank{rank}.pt")
+    except BaseException:
+        (out / f"rank{rank}.err").write_text(traceback.format_exc())
+        raise
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+
+
+def _card_dp(out, backend, devices):
+    from tests.test_torch_parallel import start_ranks, wait_ranks
+
+    return wait_ranks(start_ranks(_dp_rank, len(devices), out, backend,
+                                  devices), out, timeout=300)
+
+
+def _assert_dp_step(ranks, label):
+    """Both ranks averaged to the same bits and launched kernel D; rank
+    0's gradients and losses within chip_smoke.py's bars of one
+    process's."""
+    import chip_smoke
+
+    zero = ranks[0]
+    assert all(r["equal"] and r["D"] == 1 for r in ranks), ranks
+    print(f"{label}: grads_g median/max leaf rel-L2 {zero['g']}, grads_d "
+          f"{zero['d']}")
+    for key in ("g", "d"):
+        median, worst = zero[key]
+        assert median <= chip_smoke.DP_GRAD_MEDIAN, (key, median)
+        assert worst <= chip_smoke.DP_GRAD_MAX, (key, worst)
+    for k, (one, dp) in zero["losses"].items():
+        assert dp == pytest.approx(one, rel=chip_smoke.DP_LOSS_RTOL), k
+
+
+def test_two_ranks_share_the_card_over_gloo(device, tmp_path):
+    """Two ranks on cuda:0 over gloo (its all_reduce and broadcast carry
+    CUDA tensors): one medium step of a global batch of 4 against one
+    process's on the card, kernel D launched in each rank."""
+    _assert_dp_step(_card_dp(tmp_path, "gloo", ["cuda:0", "cuda:0"]),
+                    "2 ranks on one card, gloo")
+
+
+def test_nccl_refuses_ranks_that_share_a_card(device, tmp_path):
+    """NCCL takes one device a rank: two ranks named onto cuda:0 raise,
+    naming the ranks and the backend to use, before any NCCL collective
+    (which would fail or hang)."""
+    ranks = _card_dp(tmp_path, "nccl", ["cuda:0", "cuda:0"])
+    for r in ranks:
+        assert "ranks 0 and 1 share CUDA device" in r["refused"], r
+        assert "backend='gloo'" in r["refused"]
+
+
+def test_nccl_over_two_cards(device, tmp_path):
+    """With two cards: the same step over NCCL, a rank a card. The
+    one-card chip run cannot show this."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("NCCL data parallelism needs two GPUs (one a rank)")
+    _assert_dp_step(_card_dp(tmp_path, "nccl", ["cuda:0", "cuda:1"]),
+                    "2 ranks on two cards, nccl")
+
+
+def test_capture_holds_the_collector_off(device):
+    """A dead graph in a reference cycle goes when Python's cyclic
+    collector next runs. A collection inside a capture destroyed such
+    graphs there (a dropped engine's, a server phase before) and
+    invalidated the capture. Here a captured graph becomes garbage in a
+    young cycle inside a capture, with a collection due at every
+    allocation: the capture holds the collector off and succeeds, and
+    the cycle goes after it."""
+    import gc
+    import weakref
+
+    from phoonnx_tpu_torch.infer.graphs import Graphs
+
+    device = torch.device("cuda", torch.cuda.current_device())
+    x = torch.arange(8.0, device=device)
+    dead = Graphs(device)
+    dead.run(("old",), lambda t: t * 2, (x,))
+    assert dead.programs[("old",)].graph is not None
+    gone = weakref.ref(dead)
+    holder = [dead]
+    del dead
+
+    def busy(t):
+        if torch.cuda.is_current_stream_capturing() and holder:
+            cycle = [holder.pop()]
+            cycle.append(cycle)
+            del cycle  # garbage from here on, in the youngest generation
+            junk = [[i] for i in range(2000)]  # collections fall due
+            assert len(junk) == 2000
+        return t + 1
+
+    thresholds = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)
+    try:
+        live = Graphs(device)
+        live.run(("new",), busy, (x,))
+    finally:
+        gc.set_threshold(*thresholds)
+    assert gc.isenabled() and not holder
+    assert torch.equal(live.run(("new",), busy, (x,)), x + 1)
+    gc.collect()
+    assert gone() is None
