@@ -171,7 +171,18 @@ another sm_90a card) and the CUDA toolkit. The script
    241-id request timed, A, B, C launched), the float32 one within 1e-3
    of the peak of a ``VitsEngine`` over the checkpoint's generator at
    equal length; and a 4-speaker warm start from the float32 export
-   taking one step;
+   taking one step; then the convergence run (``converge:`` lines,
+   ``train/scale_run.run_scale``, the port of tools/train_scale_run.py):
+   the JAX run's 96-utterance synthetic corpus preprocessed on the card,
+   medium, batch 16, bf16, grad_accum 2, 8 epochs with a resume from the
+   epoch-4 checkpoint (the JAX run: 20 resumed at 10), each epoch's
+   seconds, validation loss and launches; a strictly falling validation
+   loss, phase B's first step phase A's last + 1, D in every epoch's
+   steps, none of A, B, C in the steps or validation and each of them in
+   every epoch's test audio; the last checkpoint exported and served by
+   ``TTSVoice.load`` on the card (audible, A, B, C launched), and the
+   exported voice in bf16 against float32 on the held-out and validation
+   utterances (frame counts, log-durations; recorded, not bounded);
 5. prints each path's launch counts (every path counted from 0), one
    ``{"kernels": [...]}`` line whose launches sum the serving paths (A, B,
    C, the server's load, the front end's voices, the training runs' test
@@ -179,7 +190,7 @@ another sm_90a card) and the CUDA toolkit. The script
    launches of its capture; the bf16 builds ``A:fused_encoder_bf16`` etc.
    those of the bf16 paths) and the training runs (D: the two epochs, the
    pipeline's epochs, option steps and warm start, both data-parallel
-   ranks' epoch), and, last, one
+   ranks' epoch, the convergence run), and, last, one
    ``{"ok": true, "device": {...}}`` line.
 
 It exits non-zero, with no result line, when there is no CUDA device, when
@@ -4958,6 +4969,142 @@ def pipeline_phase(torch, root: Path, seed: int, dev, quality="medium",
     return paths, d_epochs + d_steps + d_warm
 
 
+# ---------------------------------------------------------------------------
+# the convergence run: train/scale_run.py at medium width, bf16, grad_accum 2
+# ---------------------------------------------------------------------------
+
+# the JAX run's corpus, batch, dtype and accumulation (TRAINLOSS_r05.json) at
+# a smaller depth: 8 epochs resumed at 4 (the JAX run: 20 resumed at 10).
+# A medium checkpoint holds G, D and both Adam moments (~0.84 GB), so one
+# is written a phase: at epoch 4, where phase B resumes, and at epoch 8.
+CONVERGE = dict(utts=96, epochs=8, resume_at=4, batch_size=16,
+                quality="medium", compute_dtype="bfloat16", grad_accum=2,
+                checkpoint_epochs=4)
+
+
+def converge_phase(torch, root: Path, card: str, tag="converge", **kw):
+    """``scale_run.run_scale`` on the card as a user drives it: the
+    synthetic corpus preprocessed on the card, phase A, a resume from its
+    checkpoint, phase B, the export served by ``TTSVoice.load``, and the
+    exported voice in bf16 against float32. Checks a strictly falling
+    validation loss, phase B's steps continuing phase A's, D in every
+    epoch's steps, no A, B or C in the steps or validation, A, B and C in
+    every epoch's test audio (one A and one B a held-out utterance, one C a
+    decoder stage) and in the export check, and an audible export.
+    Superseded checkpoints are removed. Returns (A/B/C's float32 launches
+    by path, the bf16 voice's launches, D's launches)."""
+    from phoonnx_tpu_torch.models.vits.model import VitsHParams
+    from phoonnx_tpu_torch.train.scale_run import run_scale
+
+    device = kw.pop("device", "cuda")
+    settings = dict(CONVERGE, **kw)
+    work = root / "build" / "chip_smoke" / "converge"
+    if work.exists():
+        shutil.rmtree(work)
+    kernels, kernels_bf16 = all_kernels(), serving_kernels("bfloat16")
+    reset_launches(kernels)
+    reset_launches(kernels_bf16)
+    if torch.cuda.is_available():
+        # the summary's peak is the phase's, not an earlier phase's
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with TestAudioCounts(kernels) as audio:
+        s = run_scale(work, device=device, **settings)
+    wall = time.perf_counter() - t0
+    total, total_bf16 = launch_counts(kernels), launch_counts(kernels_bf16)
+    tag = f"{tag} on {card}"
+    epochs = settings["epochs"]
+    print(f"{tag}: {s['preset']}, {s['utterances']} utterances, batch "
+          f"{s['batch_size']}, {s['compute_dtype']}, grad_accum "
+          f"{s['grad_accum']}, {epochs} epochs resumed at "
+          f"{s['resumed_at_epoch']}: {wall:.1f} s (training "
+          f"{s['total_wall_s']} s); steps A {s['phase_steps']['A']} B "
+          f"{s['phase_steps']['B']}", flush=True)
+    stages = len(VitsHParams.preset(s["preset"]).upsample_rates)
+    n_test = 2
+    want_audio = {"A": n_test, "B": n_test, "C": n_test * stages, "D": 0}
+    vals = [s["val_loss"][e] for e in range(epochs)]
+    for e in range(epochs):
+        parts = s["launches_by_epoch"][e]
+        print(f"{tag}: epoch {e} {s['epoch_seconds'][e]} s, val_loss "
+              f"{vals[e]}, launches in the steps {parts['steps']}, "
+              f"validation {parts['validation']}, test audio "
+              f"{parts['test_audio']}", flush=True)
+        check(parts["steps"]["D"] > 0,
+              f"{tag}: kernel D was not launched in epoch {e}'s steps")
+        for part in ("steps", "validation"):
+            reached = {k: parts[part][k] for k in "ABC" if parts[part][k]}
+            check(not reached, f"{tag}: epoch {e}'s {part} reached an "
+                  f"inference kernel {reached}")
+        check(parts["test_audio"] == want_audio,
+              f"{tag}: epoch {e}'s test audio launched "
+              f"{parts['test_audio']}, wanted {want_audio}")
+    check(len(vals) == epochs and all(b < a for a, b in zip(vals, vals[1:])),
+          f"{tag}: the validation loss did not fall strictly: {vals}")
+    check(s["phase_steps"]["B"][0] == s["phase_steps"]["A"][1] + 1,
+          f"{tag}: phase B's steps {s['phase_steps']['B']} do not continue "
+          f"phase A's {s['phase_steps']['A']}")
+    check(not s["test_audio_errors"],
+          f"{tag}: test audio failed: {s['test_audio_errors']}")
+    check(len(audio.at_calls) == epochs
+          and all(audio.inside[k] == epochs * want_audio[k] for k in "ABC"),
+          f"{tag}: the test audio's own counts {audio.inside} over "
+          f"{len(audio.at_calls)} calls")
+    export = s["export_check"]
+    exp_launches = s["export_check_launches"]
+    print(f"{tag}: export {Path(export['exported_model']).name}: "
+          f"{export['synth_samples']} samples, rms {export['synth_rms']}, "
+          f"audible {export['audible']}; launches {exp_launches}", flush=True)
+    check(export["audible"], f"{tag}: the exported voice is not audible")
+    report_launches({k: exp_launches[k] for k in "ABC"}, tag,
+                    "exported voice (TTSVoice.load)")
+    dtypes = s["bf16_vs_float32"]
+    for row in dtypes["utterances"]:
+        print(f"{tag}: bf16 vs float32, {row['set']} utterance of "
+              f"{row['ids']} ids: frames {row['frames_bfloat16']} / "
+              f"{row['frames_float32']}, log-duration error max "
+              f"{row['max_log_duration_err']:.4f} mean "
+              f"{row['mean_log_duration_err']:.4f} signed "
+              f"{row['mean_signed_log_duration_err']:+.4f}", flush=True)
+    print(f"{tag}: bf16 vs float32 over {len(dtypes['utterances'])} "
+          f"utterances: equal frame counts {dtypes['equal_frame_counts']}, "
+          f"largest relative frame difference "
+          f"{dtypes['max_rel_frame_diff']:.4f}, log-duration error max "
+          f"{dtypes['max_log_duration_err']:.4f} mean "
+          f"{dtypes['mean_log_duration_err']:.4f} signed "
+          f"{dtypes['mean_signed_log_duration_err']:+.4f} (recorded, not "
+          "bounded)",
+          flush=True)
+    # every launch of the phase is one the summary attributes
+    parts = [p for e in range(epochs)
+             for p in s["launches_by_epoch"][e].values()]
+    parts += [exp_launches, dtypes["launches"]["float32"]]
+    attributed = {k: sum(p[k] for p in parts) for k in kernels}
+    check(attributed == total,
+          f"{tag}: launches {total}, the summary attributes {attributed}")
+    check(dtypes["launches"]["bfloat16"] == total_bf16,
+          f"{tag}: bf16 launches {total_bf16}, the summary's "
+          f"{dtypes['launches']['bfloat16']}")
+    print(f"{tag}: device memory after the first epoch {s['hbm']}; peak "
+          f"allocated {s['peak_allocated_mib']} MiB; warm step ms "
+          f"quartiles {s['step_ms_quartiles_warm']}, "
+          f"{s['warm_steps_per_s']} steps/s, warm epoch mean "
+          f"{s['warm_epoch_s_mean']} s; checkpoint {s['checkpoint_mib']} "
+          f"MiB, saved in {s['checkpoint_save_s']} s", flush=True)
+    # phase A's checkpoint is superseded by phase B's, which was exported
+    last = work / s["checkpoints"]["B"]
+    for path in last.parent.glob("step_*"):
+        if path.name.split(".")[0] != last.stem:
+            path.unlink()
+    paths = {"converge test audio": {k: audio.inside[k] for k in "ABC"},
+             "converge export check": {k: exp_launches[k] for k in "ABC"},
+             "converge float32 voice (bf16 check)": {
+                 k: dtypes["launches"]["float32"][k] for k in "ABC"}}
+    paths_bf16 = {"converge bf16 voice (bf16 check)": report_launches(
+        total_bf16, tag, "bf16 voice of the trained weights")}
+    return paths, paths_bf16, total["D"]
+
+
 def high_stage0(torch, seed, dev):
     """Kernel C's spec for the high preset's first stage (256 channels,
     resblock "1": kernels 3, 7, 11 at dilations 1, 3, 5), on ``dev``."""
@@ -5176,9 +5323,18 @@ def main() -> None:
     paths.update(pipeline_paths)
     memory_line(torch, "the pipeline")
 
+    # the convergence run (train/scale_run.py): medium, bf16, grad_accum 2,
+    # a mid-run resume, the export served, its bf16 voice against float32
+    converge_paths, converge_bf16, d_converge = converge_phase(
+        torch, ROOT, card)
+    paths.update(converge_paths)
+    paths_bf16.update(converge_bf16)
+    memory_line(torch, "the convergence run")
+
     launches = {name: sum(counts[name] for counts in paths.values())
                 for name in ("A", "B", "C")}
-    launches["D"] = d_medium + d_mb + d_pipeline + dp_launches["D"]
+    launches["D"] = (d_medium + d_mb + d_pipeline + dp_launches["D"]
+                     + d_converge)
     launches_bf16 = {name: sum(counts[name] for counts in paths_bf16.values())
                      for name in ("A", "B", "C")}
     for path, counts in {**paths, **paths_bf16}.items():
@@ -5186,8 +5342,8 @@ def main() -> None:
     print(f"launches: bf16 builds summed {launches_bf16}", flush=True)
     print(f"launches: training medium D={d_medium}, training "
           f"medium-mb-istft D={d_mb}, pipeline D={d_pipeline}, "
-          f"data-parallel epoch D={dp_launches['D']} (both ranks); summed "
-          f"{launches}", flush=True)
+          f"data-parallel epoch D={dp_launches['D']} (both ranks), "
+          f"convergence run D={d_converge}; summed {launches}", flush=True)
 
     jax_dir = "phoonnx_tpu/models/vits"
     sources = {"A": ("fused_encoder", f"{jax_dir}/fused_encoder.py:195"),

@@ -466,11 +466,10 @@ def expand_prior(m_p: Tensor, logs_p: Tensor, w_ceil: Tensor,
     return m_p_exp, logs_p_exp
 
 
-def _durations(params, hp: VitsHParams, x: Tensor, x_mask: Tensor,
-               length_scale, noise_w, g: Optional[Tensor],
-               dp_noise: Optional[Tensor],
-               generator: Optional[torch.Generator]) -> Tensor:
-    """w_ceil [B, T_x]: frames per text position, counted in f32."""
+def _log_durations(params, hp: VitsHParams, x: Tensor, x_mask: Tensor,
+                   noise_w, g: Optional[Tensor], dp_noise: Optional[Tensor],
+                   generator: Optional[torch.Generator]) -> Tensor:
+    """logw [B, T_x, 1] of the duration predictor, in the encoder's dtype."""
     b, t_x = x.shape[:2]
     dtype = x.dtype
     if hp.use_sdp:
@@ -483,6 +482,16 @@ def _durations(params, hp: VitsHParams, x: Tensor, x_mask: Tensor,
             * torch.as_tensor(noise_w, dtype=dtype), g=g)
     else:
         logw = duration.duration_predictor(params["dp"], x, x_mask, g=g)
+    return logw
+
+
+def _durations(params, hp: VitsHParams, x: Tensor, x_mask: Tensor,
+               length_scale, noise_w, g: Optional[Tensor],
+               dp_noise: Optional[Tensor],
+               generator: Optional[torch.Generator]) -> Tensor:
+    """w_ceil [B, T_x]: frames per text position, counted in f32."""
+    logw = _log_durations(params, hp, x, x_mask, noise_w, g, dp_noise,
+                          generator)
     # duration arithmetic in f32 (a half type cannot count frames exactly)
     w = torch.exp(logw.float()) * x_mask.float() * length_scale
     return torch.ceil(w)[..., 0]
@@ -559,6 +568,25 @@ def infer_durations(params, hp: VitsHParams, x_ids: Tensor,
     w_ceil = _durations(params, hp, x, x_mask, length_scale, noise_w, g,
                         dp_noise, generator)
     return m_p, logs_p, w_ceil, x_mask, g
+
+
+def infer_log_durations(params, hp: VitsHParams, x_ids: Tensor,
+                        x_lengths: Tensor, noise_w,
+                        sid: Optional[Tensor] = None,
+                        dp_noise: Optional[Tensor] = None,
+                        generator: Optional[torch.Generator] = None
+                        ) -> Tensor:
+    """The log-durations [B, T_x] that :func:`infer_durations` scales by
+    ``length_scale`` and rounds up to frames, in float32, 0 past each
+    length."""
+    b, t_x = x_ids.shape
+    dtype = params["enc_p"]["emb"]["weight"].dtype
+    x_mask = nn.sequence_mask(x_lengths, t_x)[..., None].to(dtype)
+    x, _, _ = encoder.text_encoder(params["enc_p"], x_ids, x_mask)
+    g = _speaker_embedding(params, hp, sid, b, x.device)
+    logw = _log_durations(params, hp, x, x_mask, noise_w, g, dp_noise,
+                          generator)
+    return (logw.float() * x_mask.float())[..., 0]
 
 
 def infer_latents(params, hp: VitsHParams, m_p: Tensor, logs_p: Tensor,

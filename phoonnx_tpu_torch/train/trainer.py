@@ -56,7 +56,8 @@ import torch
 from phoonnx_tpu_torch.infer.engine import resolve_device
 from phoonnx_tpu_torch.models.vits import model as vits_model
 from phoonnx_tpu_torch.models.vits.model import VitsHParams
-from phoonnx_tpu_torch.observability import device_trace
+from phoonnx_tpu_torch.observability import (device_memory_stats,
+                                              device_trace)
 from phoonnx_tpu_torch.parallel import (all_mean, make_mesh, multihost,
                                         shard_batch, shard_train_state)
 from phoonnx_tpu_torch.train import checkpoint as ckpt
@@ -350,7 +351,13 @@ def run_training(
                     "kl=%.3f dur=%.3f", epoch, state.step,
                     record["loss_gen_all"], record["loss_disc_all"],
                     record["loss_mel"], record["loss_kl"], record["loss_dur"])
+        # the step reads its losses to the host, so the clock read here
+        # follows the epoch's device work
         log("epoch %d done in %.1fs", epoch, time.perf_counter() - epoch_start)
+        if epoch == 0 and main_rank:
+            memory = device_memory_stats()
+            if memory:  # the peak after one epoch ~ the steady footprint
+                LOG.info("device memory after first epoch: %s", memory)
 
         if val_loader is not None:
             val_loss = evaluate(state, val_loader, hp, cfg, dev, mesh=mesh)

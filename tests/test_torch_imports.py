@@ -48,7 +48,7 @@ for trained in ("ops.mas", "ops.stft", "models.vits.discriminator",
                 "phonemizers.ko", "thirdparty.mantoq", "thirdparty.kog2p",
                 "thirdparty.hangul2ipa", "thirdparty.tashkeel",
                 "thirdparty.phonikud", "version", "quantize", "train.audio",
-                "train.preprocess", "train.export"):
+                "train.preprocess", "train.export", "train.scale_run"):
     assert "phoonnx_tpu_torch." + trained in names, trained
 
 import torch
