@@ -2376,7 +2376,7 @@ def served_held(torch, srv, voice, seed, tag):
         got[i] = serve_post(srv, {"text": texts[i], "noise_scale": 0.0,
                                   "noise_w": 0.0})[0]
 
-    before = srv.batcher.stats["batches"]
+    before = srv.batcher.stats["groups"]
     in_threads(hit, len(texts))
     worst = 0
     lengths = []
@@ -2389,7 +2389,7 @@ def served_held(torch, srv, voice, seed, tag):
               f"ids has {pcm.shape[0]} samples, the engine's {want.shape[0]}")
         worst = max(worst, lsb(pcm, want))
     print(f"{tag}: 8 concurrent requests of {lengths} ids at noise 0 in "
-          f"{srv.batcher.stats['batches'] - before} batch(es): max "
+          f"{srv.batcher.stats['groups'] - before} group(s): max "
           f"{worst} LSB from synthesize_ids (bound {bound})", flush=True)
     check(worst <= bound, f"{tag}: a served request differs from the "
           f"engine's by {worst} LSB")
@@ -2608,7 +2608,7 @@ def serve_load(torch, srv, voice, seed, scale, tag, levels=SERVE_CLIENTS):
             finally:
                 clock.on = group_clock.on = False
             stats = srv.batcher.stats
-            groups = stats["batches"] - stats0["batches"]
+            groups = stats["groups"] - stats0["groups"]
             replays = Counter(graphs.replays) - replays0
             captured = sorted(set(graphs.programs) - keys0, key=str)
             phase1 = [k for k in list(replays.elements()) + captured

@@ -47,6 +47,7 @@ from typing import Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from phoonnx_tpu_torch import observability
 from phoonnx_tpu_torch.infer.graphs import Graphs
 from phoonnx_tpu_torch.models.vits import model as vits_model
 from phoonnx_tpu_torch.models.vits import nn
@@ -517,19 +518,24 @@ class VitsEngine:
             self._check_speakers(speaker_ids)
         if seed is None:
             seed = int(np.random.randint(0, 2 ** 31 - 1 - batch))
-        ids, lengths, sid, dp_noise, gens = self._batch_inputs(
-            batch_ids, speaker_ids, seed)
+        with observability.span("engine.inputs"):
+            ids, lengths, sid, dp_noise, gens = self._batch_inputs(
+                batch_ids, speaker_ids, seed)
+            scales = self._scales(noise_scale, length_scale, noise_w)
         t_bucket = ids.shape[1]
-        scales = self._scales(noise_scale, length_scale, noise_w)
 
         if self.mode == "fused":
             f_bucket = self._fused_bucket(t_bucket)
-            prior = self._prior(gens, [f_bucket] * batch, f_bucket)
-            audio, y_lengths = self._fetch(*self._run(
-                ("fused", batch, t_bucket, f_bucket),
-                partial(self._fused, max_frames=f_bucket,
-                        pcm16=self.fetch_pcm16),
-                ids, lengths, sid, scales, dp_noise, prior))
+            with observability.span("engine.prior"):
+                prior = self._prior(gens, [f_bucket] * batch, f_bucket)
+            with observability.span("engine.fused"):
+                out = self._run(
+                    ("fused", batch, t_bucket, f_bucket),
+                    partial(self._fused, max_frames=f_bucket,
+                            pcm16=self.fetch_pcm16),
+                    ids, lengths, sid, scales, dp_noise, prior)
+            with observability.span("engine.fetch"):
+                audio, y_lengths = self._fetch(*out)
             frame_lengths = [int(n) for n in y_lengths]
             if any(n >= f_bucket for n in frame_lengths):
                 LOG.warning(
@@ -538,18 +544,24 @@ class VitsEngine:
                     f_bucket)
             return _audio_np(audio), frame_lengths
 
-        m_p, logs_p, w_ceil, x_mask, g, frames = self._run(
-            ("phase1", batch, t_bucket), self._phase1, ids, lengths, sid,
-            scales, dp_noise)
+        with observability.span("engine.phase1"):
+            m_p, logs_p, w_ceil, x_mask, g, frames = self._run(
+                ("phase1", batch, t_bucket), self._phase1, ids, lengths,
+                sid, scales, dp_noise)
         # host decision: the frame bucket from the predicted durations
-        frames, = self._fetch(frames)
+        with observability.span("engine.frames"):
+            frames, = self._fetch(frames)
         f_bucket = self._frame_bucket_clamped(int(frames.max()))
-        prior = self._prior(gens, frames, f_bucket)
-        audio, y_lengths = self._fetch(*self._run(
-            ("phase2", batch, t_bucket, f_bucket),
-            partial(self._phase2, max_frames=f_bucket,
-                    pcm16=self.fetch_pcm16),
-            m_p, logs_p, w_ceil, x_mask, g, scales, prior))
+        with observability.span("engine.prior"):
+            prior = self._prior(gens, frames, f_bucket)
+        with observability.span("engine.phase2"):
+            out = self._run(
+                ("phase2", batch, t_bucket, f_bucket),
+                partial(self._phase2, max_frames=f_bucket,
+                        pcm16=self.fetch_pcm16),
+                m_p, logs_p, w_ceil, x_mask, g, scales, prior)
+        with observability.span("engine.fetch"):
+            audio, y_lengths = self._fetch(*out)
         return _audio_np(audio), [int(n) for n in y_lengths]
 
     @torch.inference_mode()

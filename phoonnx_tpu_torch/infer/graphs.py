@@ -45,7 +45,9 @@ outside the pool. A capture that runs out of device memory raises with
 its key and the pool's size.
 
 Counts: ``Graphs.replays`` counts the replays of each key (a key's first
-call, which captures it, is not one), under the same lock.
+call, which captures it, is not one) and ``Graphs.captures`` the
+captures, under the same lock. While a ``torch.profiler`` trace is open,
+a capture is also a ``graphs.capture`` span (``observability``).
 
 Collection: Python's cyclic collector is held off while a capture runs.
 A collection inside a capture would finalize whatever dead cycles hold,
@@ -61,7 +63,7 @@ from typing import Dict, Optional, Sequence
 
 import torch
 
-from phoonnx_tpu_torch import cuda
+from phoonnx_tpu_torch import cuda, observability
 
 # byte alignment of each host input inside the staging buffer
 _ALIGN = 64
@@ -203,6 +205,7 @@ class Graphs:
         self.matmul_precision = matmul_precision
         self.programs: Dict[tuple, CapturedProgram] = {}
         self.replays: "collections.Counter[tuple]" = collections.Counter()
+        self.captures = 0
         self._stream: Optional[torch.cuda.Stream] = None
         self._pool = None
         self._lock = threading.Lock()
@@ -222,8 +225,10 @@ class Graphs:
             with torch.cuda.stream(self._stream):
                 program = self.programs.get(key)
                 if program is None:
-                    program = self._capture(key, fn, args)
+                    with observability.span("graphs.capture", key=str(key)):
+                        program = self._capture(key, fn, args)
                     self.programs[key] = program
+                    self.captures += 1
                     out, program.first = program.first, None
                 else:
                     out = program(*args)

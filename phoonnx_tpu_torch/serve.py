@@ -55,6 +55,7 @@ Where this differs from ``phoonnx_tpu/serve.py``, and why:
   bucket limit.
 """
 
+import collections
 import io
 import itertools
 import json
@@ -70,6 +71,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from phoonnx_tpu_torch import observability
 from phoonnx_tpu_torch.config import SynthesisConfig
 
 LOG = logging.getLogger(__name__)
@@ -82,6 +84,9 @@ class _Submission:
     scales: Tuple[float, float, float]  # (noise, length, noise_w)
     speaker_id: int
     seed: Optional[int]
+    request_id: int = 0
+    # the start of its batcher.queue span (observability.stamp)
+    queued: Optional[tuple] = None
     event: threading.Event = field(default_factory=threading.Event)
     audio: Optional[np.ndarray] = None
     error: Optional[Exception] = None
@@ -99,6 +104,15 @@ class _Submission:
         return self.audio
 
 
+# DynamicBatcher.stats: submissions, groups (one _synthesize_group each),
+# dispatches (engine calls; a group of more lanes than max_batch makes
+# several), their real and pad lanes, the frames of the real lanes and
+# the frames decoded (lanes x the frame bucket, pad lanes included), and
+# the graphs its engine has captured (``Graphs.captures``)
+COUNTERS = ("requests", "groups", "dispatches", "lanes", "pad_lanes",
+            "frames_real", "frames_decoded", "graph_captures")
+
+
 class DynamicBatcher:
     """Coalesce concurrent synthesis submissions into device batches."""
 
@@ -109,13 +123,25 @@ class DynamicBatcher:
         self.max_wait = max_wait_ms / 1000.0
         self._queue: "queue.Queue[_Submission]" = queue.Queue()
         self._stop = threading.Event()
-        self.stats = {"requests": 0, "batches": 0, "max_batch_seen": 0}
+        self._stats = dict.fromkeys(COUNTERS, 0)
+        self._stats["max_batch_seen"] = 0
+        self._request_ids = itertools.count()
+        self._group_ids = itertools.count()
         # '+=' on a dict entry is a non-atomic read-modify-write; submit()
         # runs on every HTTP handler thread concurrently
         self._stats_lock = threading.Lock()
         self._thread = None
         if autostart:
             self.start()
+
+    @property
+    def stats(self) -> Dict[str, Any]:
+        """A copy of the counters (``COUNTERS``, ``max_batch_seen``)."""
+        with self._stats_lock:
+            stats = dict(self._stats)
+        graphs = getattr(self.engine, "graphs", None)
+        stats["graph_captures"] = graphs.captures if graphs else 0
+        return stats
 
     def start(self) -> None:
         if self._thread is None:
@@ -143,7 +169,8 @@ class DynamicBatcher:
                scales: Tuple[float, float, float],
                speaker_id: int = 0,
                seed: Optional[int] = None) -> _Submission:
-        sub = _Submission(sentence_ids, scales, speaker_id, seed)
+        sub = _Submission(sentence_ids, scales, speaker_id, seed,
+                          request_id=next(self._request_ids))
         if self._stop.is_set():
             # racing stop(): fail fast instead of enqueueing into a
             # drained queue where no dispatcher will ever set the event
@@ -152,7 +179,8 @@ class DynamicBatcher:
             sub.event.set()
             return sub
         with self._stats_lock:
-            self.stats["requests"] += 1
+            self._stats["requests"] += 1
+        sub.queued = observability.stamp()
         self._queue.put(sub)
         return sub
 
@@ -220,84 +248,113 @@ class DynamicBatcher:
     def _synthesize_group(self, group: List[_Submission],
                           scales: Tuple[float, float, float],
                           seed: Optional[int]) -> None:
+        group_id = next(self._group_ids)
+        for sub in group:
+            if sub.queued is not None:
+                observability.record("batcher.queue", sub.queued,
+                                     request_id=sub.request_id,
+                                     group_id=group_id)
         flat_ids: List[List[int]] = []
         speaker_ids: List[int] = []
         for sub in group:
             flat_ids.extend(sub.sentence_ids)
             speaker_ids.extend([sub.speaker_id] * len(sub.sentence_ids))
-        try:
-            if not flat_ids:
+        with observability.span("batcher.group", group_id=group_id,
+                                requests=len(group), lanes=len(flat_ids)):
+            try:
+                if not flat_ids:
+                    for sub in group:
+                        sub.audio = np.zeros(0, np.float32)
+                        sub.event.set()
+                    return
+                lanes = len(flat_ids)
+                # Length-sorted dispatch of unseeded groups: the engine pads
+                # every lane to the chunk's text/frame bucket, so a chunk's
+                # cost is set by its LONGEST sentence; sorting lanes by length
+                # before chunking groups short sentences together, and those
+                # chunks decode at a smaller bucket. A seeded group (one
+                # submission) keeps its order: lane i's noise is drawn from
+                # seed + i, so sorting would hand each sentence the noise of
+                # another. Order is restored below via the permutation.
+                order = (list(range(lanes)) if seed is not None else
+                         sorted(range(lanes), key=lambda i: len(flat_ids[i])))
+                sorted_ids = [flat_ids[i] for i in order]
+                sorted_sids = [speaker_ids[i] for i in order]
+                # a single submission can exceed max_batch on its own (one
+                # request whose text splits into many sentences): cap every
+                # device dispatch at max_batch lanes. Pad lanes up to a
+                # power-of-two batch bucket: the lane count is part of every
+                # graph key, so arbitrary counts would capture fresh graphs
+                # per distinct concurrency level, all on this single
+                # dispatcher thread. Engines that run rows sequentially get
+                # no pad: each pad row would be a REAL extra synthesis there.
+                pads = getattr(self.engine, "compiled_batching", True)
+                upsample = self.engine.hp.total_upsample
+                counts: Dict[str, int] = collections.Counter()
+                chunks = []
+                for start in range(0, lanes, self.max_batch):
+                    chunk_ids = sorted_ids[start:start + self.max_batch]
+                    chunk_sids = sorted_sids[start:start + self.max_batch]
+                    n_chunk = len(chunk_ids)
+                    target = n_chunk
+                    if pads:
+                        target = 1
+                        while target < n_chunk:
+                            target *= 2
+                    pad_rows = target - n_chunk
+                    with observability.span("batcher.dispatch",
+                                            group_id=group_id) as dispatch:
+                        audio, frame_lengths = self.engine.synthesize_batch(
+                            chunk_ids + [[1]] * pad_rows,
+                            noise_scale=scales[0], length_scale=scales[1],
+                            noise_w=scales[2],
+                            speaker_ids=chunk_sids + [0] * pad_rows,
+                            # lane i of the chunk is lane start + i of the
+                            # group
+                            seed=None if seed is None else seed + start,
+                        )
+                        real = int(sum(frame_lengths[:n_chunk]))
+                        # a pad lane decodes as many frames as a real one;
+                        # a sequential engine decodes each row at its length
+                        decoded = (target * (audio.shape[1] // upsample)
+                                   if pads else real)
+                        dispatch.set(lanes=n_chunk, pad_lanes=pad_rows,
+                                     frames_real=real, frames_decoded=decoded)
+                    chunks.append((start, n_chunk, audio, frame_lengths))
+                    counts.update(lanes=n_chunk, pad_lanes=pad_rows,
+                                  frames_real=real, frames_decoded=decoded)
+                with self._stats_lock:
+                    self._stats["groups"] += 1
+                    self._stats["dispatches"] += len(chunks)
+                    for key, n in counts.items():
+                        self._stats[key] += n
+                    self._stats["max_batch_seen"] = max(
+                        self._stats["max_batch_seen"], min(lanes,
+                                                           self.max_batch))
+                with observability.span("batcher.reassemble",
+                                        group_id=group_id):
+                    rows_audio: List[Optional[np.ndarray]] = [None] * lanes
+                    rows_frames: List[int] = [0] * lanes
+                    for start, n_chunk, audio, frame_lengths in chunks:
+                        for i in range(n_chunk):
+                            rows_audio[order[start + i]] = audio[i]
+                            rows_frames[order[start + i]] = frame_lengths[i]
+                    cursor = 0
+                    for sub in group:
+                        pieces = []
+                        for _ in sub.sentence_ids:
+                            n = rows_frames[cursor] * upsample
+                            pieces.append(rows_audio[cursor][:n])
+                            cursor += 1
+                        sub.audio = (np.concatenate(pieces) if pieces
+                                     else np.zeros(0, np.float32))
+                        sub.event.set()
+            except Exception as exc:  # surface to the waiting handler
+                LOG.exception("batch synthesis failed")
                 for sub in group:
-                    sub.audio = np.zeros(0, np.float32)
-                    sub.event.set()
-                return
-            lanes = len(flat_ids)
-            # Length-sorted dispatch of unseeded groups: the engine pads
-            # every lane to the chunk's text/frame bucket, so a chunk's
-            # cost is set by its LONGEST sentence; sorting lanes by length
-            # before chunking groups short sentences together, and those
-            # chunks decode at a smaller bucket. A seeded group (one
-            # submission) keeps its order: lane i's noise is drawn from
-            # seed + i, so sorting would hand each sentence the noise of
-            # another. Order is restored below via the permutation.
-            order = (list(range(lanes)) if seed is not None else
-                     sorted(range(lanes), key=lambda i: len(flat_ids[i])))
-            sorted_ids = [flat_ids[i] for i in order]
-            sorted_sids = [speaker_ids[i] for i in order]
-            rows_audio: List[Optional[np.ndarray]] = [None] * lanes
-            rows_frames: List[int] = [0] * lanes
-            # a single submission can exceed max_batch on its own (one
-            # request whose text splits into many sentences): cap every
-            # device dispatch at max_batch lanes. Pad lanes up to a
-            # power-of-two batch bucket: the lane count is part of every
-            # graph key, so arbitrary counts would capture fresh graphs
-            # per distinct concurrency level, all on this single
-            # dispatcher thread. Engines that run rows sequentially get
-            # no pad: each pad row would be a REAL extra synthesis there.
-            pads = getattr(self.engine, "compiled_batching", True)
-            for start in range(0, lanes, self.max_batch):
-                chunk_ids = sorted_ids[start:start + self.max_batch]
-                chunk_sids = sorted_sids[start:start + self.max_batch]
-                n_chunk = len(chunk_ids)
-                target = n_chunk
-                if pads:
-                    target = 1
-                    while target < n_chunk:
-                        target *= 2
-                pad_rows = target - n_chunk
-                audio, frame_lengths = self.engine.synthesize_batch(
-                    chunk_ids + [[1]] * pad_rows,
-                    noise_scale=scales[0], length_scale=scales[1],
-                    noise_w=scales[2],
-                    speaker_ids=chunk_sids + [0] * pad_rows,
-                    # lane i of the chunk is lane start + i of the group
-                    seed=None if seed is None else seed + start,
-                )
-                for i in range(n_chunk):
-                    rows_audio[order[start + i]] = audio[i]
-                    rows_frames[order[start + i]] = frame_lengths[i]
-            with self._stats_lock:
-                self.stats["batches"] += 1
-                self.stats["max_batch_seen"] = max(
-                    self.stats["max_batch_seen"], min(lanes,
-                                                      self.max_batch))
-            upsample = self.engine.hp.total_upsample
-            cursor = 0
-            for sub in group:
-                pieces = []
-                for _ in sub.sentence_ids:
-                    n = rows_frames[cursor] * upsample
-                    pieces.append(rows_audio[cursor][:n])
-                    cursor += 1
-                sub.audio = (np.concatenate(pieces) if pieces
-                             else np.zeros(0, np.float32))
-                sub.event.set()
-        except Exception as exc:  # surface to the waiting handler
-            LOG.exception("batch synthesis failed")
-            for sub in group:
-                if not sub.event.is_set():
-                    sub.error = exc
-                    sub.event.set()
+                    if not sub.event.is_set():
+                        sub.error = exc
+                        sub.event.set()
 
 
 class BatcherPool:
@@ -339,14 +396,14 @@ class BatcherPool:
 
     @property
     def stats(self) -> Dict[str, Any]:
-        merged: Dict[str, Any] = {"requests": 0, "batches": 0,
-                                  "max_batch_seen": 0}
+        merged: Dict[str, Any] = dict.fromkeys(COUNTERS, 0)
+        merged["max_batch_seen"] = 0
         per = []
         for b in self.batchers:
             s = dict(b.stats)
             per.append(s)
-            merged["requests"] += s["requests"]
-            merged["batches"] += s["batches"]
+            for key in COUNTERS:
+                merged[key] += s[key]
             merged["max_batch_seen"] = max(merged["max_batch_seen"],
                                            s["max_batch_seen"])
         merged["devices"] = len(self.batchers)

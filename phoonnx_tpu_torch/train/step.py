@@ -31,6 +31,7 @@ from typing import Any, Dict, Iterator, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from phoonnx_tpu_torch import observability
 from phoonnx_tpu_torch.models.vits import discriminator as disc
 from phoonnx_tpu_torch.models.vits import model as vits_model
 from phoonnx_tpu_torch.models.vits import nn
@@ -301,18 +302,23 @@ def _micro_grads(state: TrainState, batch: Dict[str, Tensor],
     None in eval mode (dropout off, no graph). Under ``mesh`` they are
     this rank's, not yet averaged."""
     with torch.set_grad_enabled(not eval_mode):
-        total, aux = generator_objective(
-            state.params_g, state.params_d, batch, hp, cfg,
-            deterministic=eval_mode, generator=generator, noise=noise,
-            mesh=mesh)
+        with observability.span("train.gen_forward"):
+            total, aux = generator_objective(
+                state.params_g, state.params_d, batch, hp, cfg,
+                deterministic=eval_mode, generator=generator, noise=noise,
+                mesh=mesh)
         grads_g = None
         if not eval_mode:
-            grads_g = torch.autograd.grad(total, leaves(state.params_g))
-        loss_d = discriminator_objective(state.params_d, aux["y"],
-                                         aux["y_hat"], compute_dtype(cfg))
-        grads_d = None
-        if not eval_mode:
-            grads_d = torch.autograd.grad(loss_d, leaves(state.params_d))
+            with observability.span("train.gen_backward"):
+                grads_g = torch.autograd.grad(total, leaves(state.params_g))
+        with observability.span("train.disc"):
+            loss_d = discriminator_objective(
+                state.params_d, aux["y"], aux["y_hat"], compute_dtype(cfg))
+            grads_d = None
+            if not eval_mode:
+                with observability.span("train.disc_backward"):
+                    grads_d = torch.autograd.grad(loss_d,
+                                                  leaves(state.params_d))
     metrics = {key: aux[key].detach() for key in METRICS
                if key != "loss_disc_all"}
     metrics["loss_disc_all"] = loss_d.detach()
@@ -424,11 +430,20 @@ def train_step(state: TrainState, batch: Dict[str, Tensor], hp: VitsHParams,
     and ``mesh`` as :func:`step_grads`; under ``mesh`` every rank applies
     the same averaged gradients, so the replicas stay equal.
     """
-    grads_g, grads_d, metrics = step_grads(state, batch, hp, cfg, generator,
-                                           eval_mode, noise, mesh)
-    if eval_mode:
-        return state, metrics
-    _update(state.opt_g, leaves(state.params_g), grads_g, cfg, state.step)
-    _update(state.opt_d, leaves(state.params_d), grads_d, cfg, state.step)
-    state.step += 1
+    # rows and padded frames from the shapes: the lengths would be a read
+    # of the device
+    spec = batch["spec"]
+    with observability.span("train.step", rows=spec.shape[0],
+                            frames=spec.shape[0] * spec.shape[1]):
+        grads_g, grads_d, metrics = step_grads(state, batch, hp, cfg,
+                                               generator, eval_mode, noise,
+                                               mesh)
+        if eval_mode:
+            return state, metrics
+        with observability.span("train.update"):
+            _update(state.opt_g, leaves(state.params_g), grads_g, cfg,
+                    state.step)
+            _update(state.opt_d, leaves(state.params_d), grads_d, cfg,
+                    state.step)
+        state.step += 1
     return state, metrics

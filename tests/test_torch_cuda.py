@@ -805,6 +805,7 @@ def test_capture_out_of_memory_names_the_key(device):
     assert torch.equal(graphs.run(("small",), small, (x + 1,)), 2 * (x + 1))
     assert graphs.replays == {("small",): 1}
     assert torch.equal(graphs.run(("small", 4), small, (x[:4],)), 2 * x[:4])
+    assert graphs.captures == 2  # the failed capture is not one
 
 
 def test_replica_serves_on_the_second_card(device, tmp_path):

@@ -211,15 +211,16 @@ def test_aux_compile_copy():
     assert "TorchGraphRunner" in copy["compiled_runner"]
 
 
-@pytest.mark.parametrize("name", ["STATS_WINDOW", "SynthesisStats", "timed"])
+@pytest.mark.parametrize("name", ["STATS_WINDOW", "SynthesisStats"])
 def test_observability_copy(name):
-    """The synthesis timers are verbatim; the profiler and memory hooks are
-    rewritten for torch (``device_trace``, ``device_memory_stats``) and
-    ``enable_compilation_cache`` has no counterpart."""
+    """The synthesis stats are verbatim; the profiler and memory hooks are
+    rewritten for torch (``device_trace``, ``device_memory_stats``),
+    ``enable_compilation_cache`` has no counterpart and ``timed``, which
+    the port never called, is gone."""
     original = _top_level(JAX_PKG / "observability.py")
     copy = _top_level(PORT_PKG / "observability.py")
     assert copy[name] == _rewrite(original[name])
-    assert "enable_compilation_cache" not in copy
+    assert "enable_compilation_cache" not in copy and "timed" not in copy
     assert {"device_trace", "device_memory_stats"} <= set(copy)
 
 

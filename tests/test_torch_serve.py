@@ -172,6 +172,31 @@ def test_concurrent_requests_batch(server):
     assert after["requests"] - before["requests"] == 6
 
 
+def test_stats_route_counts_groups_and_dispatches(server):
+    """``/stats``: a request of more sentences than ``max_batch`` is one
+    group of two dispatches, and the lanes and frames add up."""
+    from phoonnx_tpu_torch.serve import COUNTERS
+
+    _, data = _request(server, "GET", "/stats")
+    before = json.loads(data)
+    # ten sentences at max_batch 8; a seeded request is a group of its own
+    resp, wav = _request(server, "POST", "/synthesize",
+                         {"text": "Abc def. " * 10, "seed": 3})
+    assert resp.status == 200
+    _, data = _request(server, "GET", "/stats")
+    after = json.loads(data)
+    assert set(COUNTERS) | {"max_batch_seen"} <= set(after)
+    assert "batches" not in after
+    grew = {k: after[k] - before[k] for k in COUNTERS}
+    assert grew["requests"] == 1 and grew["groups"] == 1
+    assert grew["dispatches"] == 2 and grew["lanes"] == 10
+    assert grew["pad_lanes"] == 0 and grew["graph_captures"] == 0
+    up = server.batcher.engine.hp.total_upsample
+    assert grew["frames_real"] == len(_pcm(wav)) // up
+    assert grew["frames_real"] <= grew["frames_decoded"]
+    assert after["dispatches"] >= after["groups"]
+
+
 def test_phonemize_route(server):
     resp, data = _request(server, "POST", "/phonemize",
                           {"text": "[[abc]]"})
@@ -547,6 +572,10 @@ def test_pool_synthesis_and_stats(pool_server):
     assert stats["devices"] == 2
     assert stats["requests"] >= 4
     assert len(stats["per_device"]) == 2
+    # the pool's counters are its batchers' sums
+    for key in ("groups", "dispatches", "lanes", "frames_real"):
+        assert stats[key] == sum(s[key] for s in stats["per_device"]) > 0
+    assert stats["dispatches"] >= stats["groups"]
 
 
 def test_pool_concurrent_requests_spread(pool_server):

@@ -7,7 +7,8 @@ packages' ``TTSVoice``. Then:
 * the two ``DynamicBatcher``s, given the same submissions over a
   recording engine, make the same ``synthesize_batch`` calls (ids, pad
   rows, speaker ids, seeds, scales), except that the port keeps a seeded
-  group in its own order where JAX length-sorts it (ADVICE.md:5);
+  group in its own order where JAX length-sorts it (ADVICE.md:5), and
+  count the same requests and groups (JAX's ``batches``);
 * the two HTTP servers answer a table of bad bodies with the same status
   and the same error, and ``/phonemize`` and ``/voices`` with the same
   JSON;
@@ -155,8 +156,18 @@ def test_batchers_make_the_same_calls():
     hp = jax_model.VitsHParams.preset("micro")
     jax_calls, jax_stats = _dispatch(JaxBatcher, hp)
     port_calls, port_stats = _dispatch(PortBatcher, hp)
-    assert port_stats == jax_stats
+    # the port's stats call JAX's "batches" what they count, "groups",
+    # and count the dispatches and their lanes and frames besides (the
+    # recording engine answers one frame a lane)
+    assert port_stats["groups"] == jax_stats["batches"]
+    assert {k: port_stats[k] for k in jax_stats if k != "batches"} == {
+        k: v for k, v in jax_stats.items() if k != "batches"}
     assert len(port_calls) == len(jax_calls) == 6
+    assert port_stats["dispatches"] == len(port_calls)
+    assert port_stats["frames_real"] == port_stats["lanes"]
+    assert port_stats["frames_decoded"] == sum(len(c["ids"])
+                                               for c in port_calls) == \
+        port_stats["lanes"] + port_stats["pad_lanes"]
 
     seeded = [i for i, c in enumerate(jax_calls) if c["seed"] is not None]
     assert seeded == [0]
