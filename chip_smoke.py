@@ -32,7 +32,10 @@ another sm_90a card) and the CUDA toolkit. The script
    archive``) builds that checkout's kernels C and D and prints their
    times beside, C's three stages and D in turn (parent, this, this,
    parent), D through the parent's own wrapper and held ``torch.equal``
-   to the parent's; captures with ``torch.cuda.graph`` a cooperative
+   to the parent's; holds the noise kernel (``csrc/noise.cu``, which
+   draws the engine's noise) against its plain version at 16 lanes x
+   1,024 rows x 192 channels and times it beside its bytes' bound
+   (``kernel noise`` line); captures with ``torch.cuda.graph`` a cooperative
    launch (the grid-barrier probe, kernels A and B) and a plain ctypes
    launch (kernel C) and replays each against an eager launch
    (``graph:`` lines);
@@ -50,8 +53,8 @@ another sm_90a card) and the CUDA toolkit. The script
    'error', and one fused graph at two length and two noise scales
    (``graph:`` lines); times the ~241-id request through the graphs
    against the same programs called eagerly (``request:`` lines: 41 runs
-   in turns with quartiles, the host's time by item, device busy and
-   idle share from the profiler); streams it at chunk 128 and overlap 32
+   in turns with quartiles, the host's time by item, the noise kernel's
+   two launches, device busy and idle share from the profiler); streams it at chunk 128 and overlap 32
    (``stream:`` lines: the stream against the monolithic request, the
    time to the first chunk, of the stream and of the monolithic
    request); holds fused mode against two-phase, ``synthesize_many``
@@ -254,6 +257,9 @@ BF16_FRAME_SHARE = 0.01
 
 NO_LIBRARY = ("no single PyTorch call computes this function (it is a chain "
               "of convs, products and masks)")
+NO_LIBRARY_NOISE = ("no single PyTorch call computes this function "
+                    "(Philox4x32-10 keyed by each lane's seed, Box-Muller; "
+                    "torch.randn on the card draws another stream)")
 NO_LIBRARY_MAS = ("no single PyTorch call computes this function (a max-plus "
                   "dynamic program over the frames and its backtrack)")
 
@@ -858,16 +864,22 @@ def text_of(n_letters: int, offset: int) -> str:
     return " ".join(words)
 
 
+# the synthesis kernels: A, B, C and the engine's noise draws
+SYNTH = ("A", "B", "C", "noise")
+
+
 def serving_kernels(dtype: str = "float32"):
-    """The kernels of the serving path, by name: their keys in
+    """The kernels of the serving path (SYNTH), by name: their keys in
     ``cuda.LAUNCHES`` for the build the engine's ``dtype`` runs."""
     import torch
 
     from phoonnx_tpu_torch import cuda as port_cuda
     from phoonnx_tpu_torch.models.vits import (fused_encoder, fused_flow,
                                                fused_stage)
+    from phoonnx_tpu_torch.ops import noise
 
-    mods = {"A": fused_encoder, "B": fused_flow, "C": fused_stage}
+    mods = {"A": fused_encoder, "B": fused_flow, "C": fused_stage,
+            "noise": noise}
     return {name: port_cuda.launch_key(mod.__name__, getattr(torch, dtype))
             for name, mod in mods.items()}
 
@@ -1445,8 +1457,8 @@ ONNX_IDS = (58, 241)
 
 
 def all_kernels():
-    """A, B and C (float32 builds) and D, by name: their ``LAUNCHES``
-    keys."""
+    """A, B, C, the noise kernel (float32 builds) and D, by name: their
+    ``LAUNCHES`` keys."""
     kernels = serving_kernels()
     kernels["D"] = "phoonnx_tpu_torch.ops.mas"
     return kernels
@@ -1866,23 +1878,21 @@ def graphs_vs_eager(torch, engine, ids, seed, tag="graph"):
     from phoonnx_tpu_torch.infer.engine import FLOW_CONTEXT
 
     dev = engine.device
-    c = engine.hp.inter_channels
-    gen = torch.Generator().manual_seed(seed)
-    tokens, lens, sid, dp_noise, gens = engine._batch_inputs([ids], [0],
-                                                             seed)
+    tokens, lens, sid, dp_noise, seeds = engine._batch_inputs([ids], [0],
+                                                              seed)
     t_bucket = tokens.shape[1]
     scales = engine._scales(0.667, 1.0, 0.8)
     host1 = (tokens, lens, sid, scales, dp_noise)
     m_p, logs_p, w_ceil, x_mask, g, frames = engine._phase1(
         *[a.to(dev) for a in host1])
-    frames = frames.cpu()
     n = int(frames.max())
     f_bucket = engine._frame_bucket_clamped(n)
-    prior = engine._prior(gens, frames, f_bucket)
+    # the noise as the engine draws it, on the card: the graphs' inputs
+    # are the tensors the engine's own calls hand them
+    prior = engine._prior(seeds, frames, f_bucket)
     phase2_in = (m_p, logs_p, w_ceil, x_mask, g, scales, prior)
     fused_bucket = engine._fused_bucket(t_bucket)
-    fused_prior = torch.randn(1, fused_bucket, c,
-                              generator=gen).to(engine.dtype)
+    fused_prior = engine._prior(seeds, None, fused_bucket)
     window = STREAM_CHUNK + 2 * STREAM_OVERLAP
     z, _ = engine._latents(*[a.to(dev) if a is not None else None
                              for a in phase2_in], max_frames=f_bucket)
@@ -1898,8 +1908,7 @@ def graphs_vs_eager(torch, engine, ids, seed, tag="graph"):
         ("first_chunk", ("first_chunk", t_bucket, STREAM_CHUNK,
                          STREAM_OVERLAP),
          partial(engine._first_chunk, window=window),
-         host1 + (torch.randn(1, window + FLOW_CONTEXT, c,
-                              generator=gen).to(engine.dtype),)),
+         host1 + (engine._prior(seeds, None, window + FLOW_CONTEXT),)),
     ]
     decode_key = ("decode_chunk", 1, f_bucket, STREAM_CHUNK, STREAM_OVERLAP)
     decode = partial(engine._decode_chunk, window=window, chunk=STREAM_CHUNK)
@@ -1944,18 +1953,17 @@ def eager_request(torch, engine, ids, seed):
     """``engine.synthesize_ids(ids, seed=seed)`` in two phases through the
     same programs called eagerly on the card, as the port ran before its
     graphs: the inputs copied to the card, phase 1, the host's read of the
-    frame count, the prior noise, phase 2, the fetch."""
+    frame count, the prior noise (drawn on the card), phase 2, the
+    fetch."""
     dev = engine.device
-    tokens, lens, sid, dp_noise, gens = engine._batch_inputs([ids], [0],
-                                                             seed)
+    tokens, lens, sid, dp_noise, seeds = engine._batch_inputs([ids], [0],
+                                                              seed)
     scales = engine._scales(0.667, 1.0, 0.8)
     host = [t.pin_memory().to(dev, non_blocking=True)
-            for t in (tokens, lens, sid, scales, dp_noise)]
+            for t in (tokens, lens, sid, scales)] + [dp_noise]
     m_p, logs_p, w_ceil, x_mask, g, frames = engine._phase1(*host)
-    frames = frames.cpu()
     f_bucket = engine._frame_bucket_clamped(int(frames.max()))
-    prior = engine._prior(gens, frames, f_bucket).pin_memory().to(
-        dev, non_blocking=True)
+    prior = engine._prior(seeds, frames, f_bucket)
     audio, y_lengths = engine._phase2(m_p, logs_p, w_ceil, x_mask, g,
                                       host[3], prior, max_frames=f_bucket)
     audio, y_lengths = audio.cpu().numpy(), y_lengths.cpu()
@@ -2024,12 +2032,20 @@ def request_phase(torch, voice, seed, profile, tag="request"):
         out = eager_request(torch, engine, ids, seed)
         return out, (time.perf_counter() - t0) * 1e3
 
+    from phoonnx_tpu_torch.ops import noise
+
     a, _ = graphed()
     b, _ = eager()
     err = float(np.abs(a - b).max())
     check(a.shape == b.shape and err <= GRAPH_TOL,
           f"{tag}: graphs vs eager programs {a.shape} {b.shape} max_abs "
           f"{err:.3e}")
+    before = noise.launches
+    graphed()
+    drawn = noise.launches - before
+    print(f"{tag}: noise kernel launches in one graphed request: {drawn} "
+          "(the duration noise and the prior)", flush=True)
+    check(drawn == 2, f"{tag}: {drawn} noise launches in one request")
     items = ("_batch_inputs", "_prior", "_run", "_ready")
     clock = HostClock(engine, items)
     g_ms, e_ms = [], []
@@ -3090,7 +3106,7 @@ def vc_phase(torch, seed, root: Path, tag="vc"):
         torch, engine, ("vc", 1, f_bucket), engine._vc,
         (spec, torch.tensor([n_frames], dtype=torch.int32),
          torch.tensor([1]), torch.tensor([2]),
-         torch.randn(1, f_bucket, hp.inter_channels, generator=gen)))
+         engine._prior(range(seed, seed + 1), [n_frames], f_bucket)))
     print(f"graph: vc key=('vc', 1, {f_bucket}) replay vs eager "
           f"max_abs={err:.3e} torch.equal={equal}", flush=True)
     check(err <= GRAPH_TOL, f"{tag}: the vc replay differs from eager by "
@@ -3358,6 +3374,101 @@ def mas_phase(torch, dev, seed, parent=None):
           f"bound_ms={b_ms:.5f} ({b_by}) flops={flops:.4e} "
           f"bytes={nbytes:.4e} device_ops_per_call={per_call}", flush=True)
     return {"max_abs_err": 0.0, "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
+# the engine's largest prior draw: 16 lanes at frame bucket 1,024 of the
+# medium voice's 192 channels
+NOISE_SHAPE = (16, 1024, 192)
+# the kernel's normals against the plain version's (float32 both; the
+# card's logf / sincosf and the CPU's log / cos / sin differ by an ulp or
+# two, times a radius of at most 5.77)
+NOISE_TOL = 2e-6
+NOISE_LOOP = 200
+
+
+def noise_phase(torch, dev, seed):
+    """The noise kernel at NOISE_SHAPE against its plain version, both
+    draws of the engine (ragged lengths, one lane masked whole), a short
+    draw as the start of the long one and each lane as the one-lane draw
+    at its seed, bf16 as the float32 draw rounded; the device kernels in
+    one call; its time (CUDA events: one launch from Python, and a graph
+    of NOISE_LOOP launches) against its bytes at the memory rate; the
+    launches it counted."""
+    from phoonnx_tpu_torch.ops import noise
+
+    lanes, rows, channels = NOISE_SHAPE
+    big = seed + 2 ** 32 + 81
+    lengths = torch.tensor([(rows * (i + 3)) // (lanes + 2) for i in
+                            range(lanes - 1)] + [0], dtype=torch.int32)
+    lens = lengths.to(dev)
+    before = (noise.launches, noise.launches_bf16)
+    err = 0.0
+    for tag in (noise.DURATION, noise.PRIOR):
+        got = noise.launch(big, lanes, rows, channels, tag, dev, lens)
+        want = noise.normal_plain(big, lanes, rows, channels, tag, lengths)
+        got_cpu = got.cpu()
+        err = max(err, (got_cpu - want).abs().max().item())
+        zeros = all(not got_cpu[b, n:].any()
+                    for b, n in enumerate(lengths.tolist()))
+        check(zeros, f"kernel noise: tag {tag}: a masked row is not 0")
+        bf16 = noise.launch(big, lanes, rows, channels, tag, dev, lens,
+                            torch.bfloat16)
+        check(torch.equal(bf16, got.to(torch.bfloat16)),
+              f"kernel noise: tag {tag}: bf16 is not the float32 draw "
+              "rounded")
+    check(err <= NOISE_TOL, f"kernel noise: {err:.3e} from its plain "
+          f"version (bound {NOISE_TOL:g})")
+    whole = noise.launch(big, lanes, rows, channels, noise.PRIOR, dev)
+    short = noise.launch(big, lanes, 37, channels, noise.PRIOR, dev)
+    check(torch.equal(short, whole[:, :37]),
+          "kernel noise: a short draw is not the start of the long one")
+    for b in (1, lanes - 1):
+        check(torch.equal(whole[b], noise.launch(big + b, 1, rows, channels,
+                                                 noise.PRIOR, dev)[0]),
+              f"kernel noise: lane {b} is not the one-lane draw at its seed")
+    counted = (noise.launches - before[0], noise.launches_bf16 - before[1])
+    check(counted == (6, 2), f"kernel noise: {counted} launches (float32, "
+          "bfloat16) counted for (6, 2)")
+
+    def draw(s):
+        return noise.launch(s, lanes, rows, channels, noise.PRIOR, dev, lens)
+
+    per_call = kernels_in_call(torch, lambda: draw(big), "noise",
+                               "normal_kernel")
+    k_ms = median_ms(torch, draw, [(big + i,) for i in range(4)])
+    # the device alone: NOISE_LOOP launches captured in one graph and
+    # replayed (a launch from Python takes longer on the host than the
+    # kernel on the card, so a loop of launches times the host)
+    graph = torch.cuda.CUDAGraph()
+    with launch_counts_kept({"noise": noise.__name__}), \
+            torch.cuda.graph(graph):
+        for i in range(NOISE_LOOP):
+            draw(big + i)
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    graph_ms = start.elapsed_time(end) / NOISE_LOOP
+    del graph
+    t0 = time.perf_counter()
+    noise.normal_plain(big, lanes, rows, channels, noise.PRIOR, lengths)
+    p_ms = (time.perf_counter() - t0) * 1e3
+    nbytes = lanes * rows * channels * 4.0 + lanes * 4
+    b_ms, b_by = bound(0.0, nbytes)
+    print(f"kernel noise {lanes}x{rows}x{channels}: max_abs_err={err:.3e} "
+          f"(bound {NOISE_TOL:g}) kernel_ms={k_ms:.5f} (one launch from "
+          f"Python) graph_ms={graph_ms:.5f} (a launch of {NOISE_LOOP} in one "
+          f"graph) plain_ms={p_ms:.3f} (the host's CPU) "
+          f"bound_ms={b_ms:.5f} ({b_by}) bytes={nbytes:.4e} "
+          f"device_ops_per_call={per_call} launches_counted={counted} "
+          "(float32, bfloat16)",
+          flush=True)
+    return {"max_abs_err": err, "ms": graph_ms, "plain_ms": p_ms,
             "bound_ms": b_ms, "bound_by": b_by}
 
 
@@ -4077,7 +4188,7 @@ def training_phase(torch, data: Path, seed: int, profile: bool,
     if profile:
         profile_train_step(torch, run, data, seed)
     return launches, {"step_ms": step_ms, "mas_ms": mas_ms,
-                      "test_audio": {k: audio.inside[k] for k in "ABC"}}
+                      "test_audio": {k: audio.inside[k] for k in SYNTH}}
 
 
 class TestAudioCounts:
@@ -4114,12 +4225,13 @@ class TestAudioCounts:
 
 
 def check_test_audio(run, audio, total, tag):
-    """A training run's steps and validation launched none of A, B, C
+    """A training run's steps and validation launched none of SYNTH
     (``total`` less what the test audio launched); its test audio
-    launched them for every held-out utterance of every epoch (one A and
-    one B an utterance, one C a decoder stage), wrote a WAV for each and
-    recorded no failure; D was launched in every epoch."""
-    steps = {name: total[name] - audio.inside[name] for name in "ABC"}
+    launched A, B and C for every held-out utterance of every epoch (one A
+    and one B an utterance, one C a decoder stage) and no noise kernel
+    (``model.infer`` draws from a torch generator), wrote a WAV for each
+    and recorded no failure; D was launched in every epoch."""
+    steps = {name: total[name] - audio.inside[name] for name in SYNTH}
     check(not any(steps.values()),
           f"{tag}: the training steps reached an inference kernel {steps}")
     previous = 0
@@ -4134,14 +4246,14 @@ def check_test_audio(run, audio, total, tag):
           f"{tag}: {epochs} test-audio directories for "
           f"{len(audio.at_calls)} epochs")
     want = {"A": n_test * epochs, "B": n_test * epochs,
-            "C": n_test * len(run.hp.upsample_rates) * epochs}
-    got = {name: audio.inside[name] for name in "ABC"}
+            "C": n_test * len(run.hp.upsample_rates) * epochs, "noise": 0}
+    got = {name: audio.inside[name] for name in SYNTH}
     check(got == want, f"{tag}: test audio launched {got}, wanted {want}")
     for out in run.test_audio_dirs:
         wavs = sorted(out.glob("test_*.wav"))
         check(len(wavs) == n_test, f"{tag}: {len(wavs)} test WAVs in {out}")
     print(f"{tag}: test audio: {epochs} epoch(s) x {n_test} WAVs, launches "
-          f"{got}; the steps and validation launched A/B/C {steps}",
+          f"{got}; the steps and validation launched {steps}",
           flush=True)
 
 
@@ -4487,7 +4599,7 @@ def dp_phase(torch, data: Path, seed: int, card: str, device: str = "cuda:0",
           f"{tag}: the ranks took other steps")
     ep0, ep1 = epochs
     want = {"A": ep0["n_test"], "B": ep0["n_test"],
-            "C": ep0["n_test"] * ep0["stages"]}
+            "C": ep0["n_test"] * ep0["stages"], "noise": 0}
     check(ep0["test_audio"] == {**want, "D": 0},
           f"{tag}: rank 0's test audio launched {ep0['test_audio']}, "
           f"wanted {want}")
@@ -4496,9 +4608,9 @@ def dp_phase(torch, data: Path, seed: int, card: str, device: str = "cuda:0",
           f"{ep0['test_audio_errors']}")
     wavs = sorted(Path(ep0["test_audio_dirs"][0]).glob("test_*.wav"))
     check(len(wavs) == ep0["n_test"], f"{tag}: {len(wavs)} test WAVs")
-    check(all(ep0["launches"][k] == want[k] for k in "ABC"),
+    check(all(ep0["launches"][k] == want[k] for k in SYNTH),
           f"{tag}: rank 0's steps launched A/B/C {ep0['launches']}")
-    check(not any(ep1["launches"][k] for k in "ABC")
+    check(not any(ep1["launches"][k] for k in SYNTH)
           and not ep1["test_audio_dirs"] and ep1["checkpoint"] is None,
           f"{tag}: rank 1 wrote test audio or a checkpoint")
     check(ep0["checkpoint"] is not None and Path(ep0["checkpoint"]).exists(),
@@ -4511,7 +4623,8 @@ def dp_phase(torch, data: Path, seed: int, card: str, device: str = "cuda:0",
     checkpoint.restore(ep0["checkpoint"], fresh)
     check(fresh.step == ep0["steps"][-1]["step"],
           f"{tag}: the checkpoint restores step {fresh.step}")
-    launches = {k: ep0["launches"][k] + ep1["launches"][k] for k in "ABCD"}
+    launches = {k: ep0["launches"][k] + ep1["launches"][k]
+                for k in (*SYNTH, "D")}
     print(f"{tag}: parameters torch.equal across ranks after the epoch; "
           f"validation loss equal on both ranks; launches summed {launches};"
           f" the phase took {time.perf_counter() - t_phase:.1f} s; {card}",
@@ -4707,7 +4820,7 @@ def pipeline_epochs(torch, data: Path, seed: int, dev, quality="medium",
 
     kernels = all_kernels()
     runs, d_launches = [], 0
-    audio_launches = {name: 0 for name in "ABC"}
+    audio_launches = {name: 0 for name in SYNTH}
     options = (("float32", {}),
                ("bf16 grad_accum 2", dict(compute_dtype="bfloat16",
                                           grad_accum=2)),
@@ -5022,7 +5135,8 @@ def converge_phase(torch, root: Path, card: str, tag="converge", **kw):
           f"{s['phase_steps']['B']}", flush=True)
     stages = len(VitsHParams.preset(s["preset"]).upsample_rates)
     n_test = 2
-    want_audio = {"A": n_test, "B": n_test, "C": n_test * stages, "D": 0}
+    want_audio = {"A": n_test, "B": n_test, "C": n_test * stages, "D": 0,
+                  "noise": 0}
     vals = [s["val_loss"][e] for e in range(epochs)]
     for e in range(epochs):
         parts = s["launches_by_epoch"][e]
@@ -5033,7 +5147,7 @@ def converge_phase(torch, root: Path, card: str, tag="converge", **kw):
         check(parts["steps"]["D"] > 0,
               f"{tag}: kernel D was not launched in epoch {e}'s steps")
         for part in ("steps", "validation"):
-            reached = {k: parts[part][k] for k in "ABC" if parts[part][k]}
+            reached = {k: parts[part][k] for k in SYNTH if parts[part][k]}
             check(not reached, f"{tag}: epoch {e}'s {part} reached an "
                   f"inference kernel {reached}")
         check(parts["test_audio"] == want_audio,
@@ -5047,7 +5161,7 @@ def converge_phase(torch, root: Path, card: str, tag="converge", **kw):
     check(not s["test_audio_errors"],
           f"{tag}: test audio failed: {s['test_audio_errors']}")
     check(len(audio.at_calls) == epochs
-          and all(audio.inside[k] == epochs * want_audio[k] for k in "ABC"),
+          and all(audio.inside[k] == epochs * want_audio[k] for k in SYNTH),
           f"{tag}: the test audio's own counts {audio.inside} over "
           f"{len(audio.at_calls)} calls")
     export = s["export_check"]
@@ -5056,7 +5170,7 @@ def converge_phase(torch, root: Path, card: str, tag="converge", **kw):
           f"{export['synth_samples']} samples, rms {export['synth_rms']}, "
           f"audible {export['audible']}; launches {exp_launches}", flush=True)
     check(export["audible"], f"{tag}: the exported voice is not audible")
-    report_launches({k: exp_launches[k] for k in "ABC"}, tag,
+    report_launches({k: exp_launches[k] for k in SYNTH}, tag,
                     "exported voice (TTSVoice.load)")
     dtypes = s["bf16_vs_float32"]
     for row in dtypes["utterances"]:
@@ -5096,10 +5210,10 @@ def converge_phase(torch, root: Path, card: str, tag="converge", **kw):
     for path in last.parent.glob("step_*"):
         if path.name.split(".")[0] != last.stem:
             path.unlink()
-    paths = {"converge test audio": {k: audio.inside[k] for k in "ABC"},
-             "converge export check": {k: exp_launches[k] for k in "ABC"},
+    paths = {"converge test audio": {k: audio.inside[k] for k in SYNTH},
+             "converge export check": {k: exp_launches[k] for k in SYNTH},
              "converge float32 voice (bf16 check)": {
-                 k: dtypes["launches"]["float32"][k] for k in "ABC"}}
+                 k: dtypes["launches"]["float32"][k] for k in SYNTH}}
     paths_bf16 = {"converge bf16 voice (bf16 check)": report_launches(
         total_bf16, tag, "bf16 voice of the trained weights")}
     return paths, paths_bf16, total["D"]
@@ -5219,6 +5333,7 @@ def main() -> None:
         torch, dev, args.seed,
         parent=parent_mas(port_cuda, args.parent, parents["mas"])
         if parents else None)
+    results["noise"] = noise_phase(torch, dev, args.seed)
     # the bf16 builds of A, B and C, at B=1 and at 16 lanes
     t_bf16 = time.perf_counter()
     on_card = bf16_params(torch, params, dev)
@@ -5313,7 +5428,7 @@ def main() -> None:
     # data-parallel training: two ranks on the card over gloo; kernel D in
     # both ranks' steps, A, B and C in rank 0's test audio
     dp_launches = dp_phase(torch, data, args.seed, card)
-    paths["dp rank 0 test audio"] = {k: dp_launches[k] for k in "ABC"}
+    paths["dp rank 0 test audio"] = {k: dp_launches[k] for k in SYNTH}
 
     # the training pipeline: preprocess, three epochs, export, serve;
     # each of its lines names the card and its power limit
@@ -5332,11 +5447,11 @@ def main() -> None:
     memory_line(torch, "the convergence run")
 
     launches = {name: sum(counts[name] for counts in paths.values())
-                for name in ("A", "B", "C")}
+                for name in SYNTH}
     launches["D"] = (d_medium + d_mb + d_pipeline + dp_launches["D"]
                      + d_converge)
     launches_bf16 = {name: sum(counts[name] for counts in paths_bf16.values())
-                     for name in ("A", "B", "C")}
+                     for name in SYNTH}
     for path, counts in {**paths, **paths_bf16}.items():
         print(f"launches: {path} {counts}", flush=True)
     print(f"launches: bf16 builds summed {launches_bf16}", flush=True)
@@ -5356,8 +5471,12 @@ def main() -> None:
     builds += [(name, lib, replaces, results_bf16[name], launches_bf16[name],
                 "_bf16") for name, (lib, replaces) in sources.items()
                if name in results_bf16]
+    # the noise kernel replaces no TPU kernel (jax.random drew the noise)
+    builds.append(("noise", "noise", None, results["noise"],
+                   launches["noise"], ""))
     for name, lib, replaces, res, n, suffix in builds:
-        reason = NO_LIBRARY_MAS if name == "D" else NO_LIBRARY
+        reason = {"D": NO_LIBRARY_MAS, "noise": NO_LIBRARY_NOISE}.get(
+            name, NO_LIBRARY)
         print(f"library_ms {name}{suffix}: null, {reason}", flush=True)
         line.append({"name": f"{name}:{lib}{suffix}", "route": "cuda",
                      "source": f"phoonnx_tpu_torch/csrc/{lib}.cu",

@@ -33,9 +33,10 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "phoonnx_tpu_torch"
-# the kernels built in both element types, and kernel D (float32 only)
+# the kernels built in both element types; kernel D (float32 only); the
+# noise kernel (one build writes float32 or bfloat16)
 TYPED = ("fused_encoder", "fused_flow", "fused_stage")
-LIBRARIES = (*TYPED, *(f"{name}_bf16" for name in TYPED), "mas")
+LIBRARIES = (*TYPED, *(f"{name}_bf16" for name in TYPED), "mas", "noise")
 BF16_SUFFIX = "_bf16"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")

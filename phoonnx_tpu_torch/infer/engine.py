@@ -26,15 +26,21 @@ streams of one key may interleave. A padded decode equals the
 exact-length decode on the valid span (kernel C masks every stage to
 it), so the padding changes no valid sample.
 
-Noise is drawn on the host per utterance from a ``torch.Generator``
-seeded with ``seed + i`` for the batch's i-th utterance: first the
-duration noise [T_x, 2], then the prior noise row by row
-(:func:`normal_rows`), so an utterance gets the same noise alone as inside
-a batch. A draw of n rows is the first n rows of a longer draw from the
-same state, so fused mode (which draws its whole frame budget before the
-frame count is known) and streaming (which draws the first window's
-prefix first) get the prior rows that two-phase synthesis draws, and
-with the same seed every mode gives the same audio.
+Noise is drawn on the engine's device, one launch of the counter-based
+noise kernel a draw (``ops/noise.py``, Philox4x32-10 and Box-Muller in
+float32): the batch's i-th utterance is keyed by ``seed + i``, its
+duration noise [T_x, 2] by tag ``noise.DURATION`` and its prior noise
+[frames, C] by ``noise.PRIOR``. Each value depends only on the key, the
+tag and its (row, channel), so an utterance gets the same noise alone as
+inside a batch, and a draw of n rows is the first n rows of a longer
+draw: fused mode (which draws its whole frame budget before the frame
+count is known) and streaming (which draws the first window's prefix
+first) get the prior rows that two-phase synthesis draws, and with the
+same seed every mode gives the same audio. Both dtypes of one seed draw
+the same noise (bfloat16 is the float32 draw rounded once). The CPU
+engine draws the same function in plain PyTorch. Seeded audio differs
+from that of releases that drew from per-utterance ``torch.Generator``s
+on the host.
 """
 
 import contextlib
@@ -52,6 +58,7 @@ from phoonnx_tpu_torch.infer.graphs import Graphs
 from phoonnx_tpu_torch.models.vits import model as vits_model
 from phoonnx_tpu_torch.models.vits import nn
 from phoonnx_tpu_torch.models.vits.model import VitsHParams
+from phoonnx_tpu_torch.ops import noise
 from phoonnx_tpu_torch.ops.stft import spectrogram
 
 LOG = logging.getLogger(__name__)
@@ -148,19 +155,6 @@ def _bucket_for(value: int, buckets: Sequence[int]) -> int:
     raise ValueError(f"length {value} exceeds largest bucket {buckets[-1]}")
 
 
-def normal_rows(generator: torch.Generator, rows: int,
-                channels: int) -> torch.Tensor:
-    """``rows`` x ``channels`` standard normals from ``generator``, such
-    that a draw of n rows is the first n rows of a longer draw from the
-    same state. The CPU generator fills normals in blocks of 16, so a draw
-    whose size is a multiple of 16 is the start of any longer such draw;
-    the draw is rounded up to one (for every preset's 192, 96 or 32
-    channels it is the plain draw)."""
-    n = rows * channels
-    flat = torch.randn(-(-n // 16) * 16, generator=generator)
-    return flat[:n].view(rows, channels)
-
-
 def to_pcm16(audio: torch.Tensor) -> torch.Tensor:
     """Clip to 16-bit PCM and truncate toward zero, as the JAX engine's
     ``_to_pcm16`` (``astype(int16)``) does, but in float32 whatever the
@@ -211,9 +205,9 @@ class VitsEngine:
         dtype: ``"float32"`` or ``"bfloat16"``. In bfloat16 every floating
         parameter is cast (as the JAX engine's ``cast_floating``), the
         scales and the noise reach the programs in bfloat16 (the noise is
-        drawn in float32 from the same generator state, so both dtypes of
-        one seed draw the same noise), durations and frame counts stay
-        float32 and int32, and the kernels take bfloat16 tensors.
+        the float32 draw rounded once, so both dtypes of one seed draw the
+        same noise), durations and frame counts stay float32 and int32,
+        and the kernels take bfloat16 tensors.
 
         matmul_precision: ``None``/``"default"``, ``"high"`` or
         ``"highest"``, the JAX engine's values; another raises. ``"high"``
@@ -414,36 +408,36 @@ class VitsEngine:
                             dtype=self.dtype)
 
     def _batch_inputs(self, batch_ids, speaker_ids, seed: int):
-        """Host inputs of a batch padded to its text bucket: (ids int64
-        [B, t_bucket], lengths int32 [B], sid int64 [B], dp_noise [B,
-        t_bucket, 2], each utterance's generator after its duration
-        noise)."""
+        """Inputs of a batch padded to its text bucket: on the host, ids
+        int64 [B, t_bucket], lengths int32 [B] and sid int64 [B]; dp_noise
+        [B, t_bucket, 2] drawn on the engine's device (rows past each
+        utterance 0); and the utterances' seeds, ``range(seed, seed +
+        B)``."""
         batch = len(batch_ids)
         t_bucket = _bucket_for(max(len(u) for u in batch_ids),
                                self.text_buckets)
         ids = torch.zeros((batch, t_bucket), dtype=torch.int64)
         lengths = torch.zeros((batch,), dtype=torch.int32)
-        dp_noise = torch.zeros((batch, t_bucket, 2))
-        gens = [torch.Generator().manual_seed(seed + i) for i in range(batch)]
         for i, utt in enumerate(batch_ids):
             ids[i, :len(utt)] = torch.as_tensor(list(utt), dtype=torch.int64)
             lengths[i] = len(utt)
-            dp_noise[i, :len(utt)] = torch.randn((len(utt), 2),
-                                                 generator=gens[i])
         sid = torch.zeros((batch,), dtype=torch.int64)
         if speaker_ids is not None:
             sid[:] = torch.as_tensor(list(speaker_ids), dtype=torch.int64)
-        return ids, lengths, sid, dp_noise.to(self.dtype), gens
+        seeds = range(seed, seed + batch)
+        dp_noise = noise.normal(seed, batch, t_bucket, 2, noise.DURATION,
+                                self.device, lengths, self.dtype)
+        return ids, lengths, sid, dp_noise, seeds
 
-    def _prior(self, gens, frames, rows: int) -> torch.Tensor:
-        """[B, rows, C] prior noise: utterance i's first min(frames[i],
-        rows) rows from ``gens[i]``, the rest 0 (masked)."""
-        c = self.hp.inter_channels
-        prior = torch.zeros((len(gens), rows, c))
-        for i, (gen, n) in enumerate(zip(gens, frames)):
-            n = min(int(n), rows)
-            prior[i, :n] = normal_rows(gen, n, c)
-        return prior.to(self.dtype)
+    def _prior(self, seeds: range, frames, rows: int) -> torch.Tensor:
+        """[B, rows, C] prior noise on the engine's device for the
+        utterances of ``seeds`` (consecutive): utterance i's first
+        min(frames[i], rows) rows, the rest 0 (masked). ``frames``: None
+        (every row), the int32 frame counts on the device (phase 1's), or
+        ints."""
+        return noise.normal(seeds.start, len(seeds), rows,
+                            self.hp.inter_channels, noise.PRIOR, self.device,
+                            frames, self.dtype)
 
     def _check_speakers(self, speaker_ids) -> None:
         """An out-of-range id would index another speaker's embedding."""
@@ -519,7 +513,7 @@ class VitsEngine:
         if seed is None:
             seed = int(np.random.randint(0, 2 ** 31 - 1 - batch))
         with observability.span("engine.inputs"):
-            ids, lengths, sid, dp_noise, gens = self._batch_inputs(
+            ids, lengths, sid, dp_noise, seeds = self._batch_inputs(
                 batch_ids, speaker_ids, seed)
             scales = self._scales(noise_scale, length_scale, noise_w)
         t_bucket = ids.shape[1]
@@ -527,7 +521,7 @@ class VitsEngine:
         if self.mode == "fused":
             f_bucket = self._fused_bucket(t_bucket)
             with observability.span("engine.prior"):
-                prior = self._prior(gens, [f_bucket] * batch, f_bucket)
+                prior = self._prior(seeds, None, f_bucket)
             with observability.span("engine.fused"):
                 out = self._run(
                     ("fused", batch, t_bucket, f_bucket),
@@ -550,10 +544,10 @@ class VitsEngine:
                 sid, scales, dp_noise)
         # host decision: the frame bucket from the predicted durations
         with observability.span("engine.frames"):
-            frames, = self._fetch(frames)
-        f_bucket = self._frame_bucket_clamped(int(frames.max()))
+            n_frames, = self._fetch(frames)
+        f_bucket = self._frame_bucket_clamped(int(n_frames.max()))
         with observability.span("engine.prior"):
-            prior = self._prior(gens, frames, f_bucket)
+            prior = self._prior(seeds, frames, f_bucket)
         with observability.span("engine.phase2"):
             out = self._run(
                 ("phase2", batch, t_bucket, f_bucket),
@@ -578,7 +572,7 @@ class VitsEngine:
         fused program with seed ``seed + i``, and the copy of its outputs
         to the host starts before the next utterance's inputs are made;
         the host waits only when it reads the results, in order. Device
-        work, copies and the host's noise draws for the next utterance
+        work, copies and the host's staging of the next utterance
         overlap."""
         self._check_speakers((speaker_id,))
         if seed is None:
@@ -586,11 +580,11 @@ class VitsEngine:
         scales = self._scales(noise_scale, length_scale, noise_w)
         in_flight = []
         for i, utt in enumerate(utterances):
-            ids, lengths, sid, dp_noise, gens = self._batch_inputs(
+            ids, lengths, sid, dp_noise, seeds = self._batch_inputs(
                 [utt], [speaker_id], seed + i)
             t_bucket = ids.shape[1]
             f_bucket = self._fused_bucket(t_bucket)
-            prior = self._prior(gens, [f_bucket], f_bucket)
+            prior = self._prior(seeds, None, f_bucket)
             audio, y_lengths = self._run(
                 ("fused", 1, t_bucket, f_bucket),
                 partial(self._fused, max_frames=f_bucket,
@@ -633,15 +627,15 @@ class VitsEngine:
         durations, the flow over a prefix of the latents (the first window
         and ``FLOW_CONTEXT`` frames of its right context) and the first
         window's decode, with no host read before it. Its prior noise is
-        the first rows of the utterance's draw (:func:`normal_rows`). Then
+        the first rows of the utterance's draw (``ops/noise.py``). Then
         the host reads the frame count, the latents are computed at the
         frame bucket, and one decode-chunk program decodes the remaining
         windows with ``overlap_frames`` frames of context on each side (32
         covers every preset's decoder), the copies of their audio to the
         host started together. With the same ``seed`` the concatenated
         stream equals :meth:`synthesize_ids`. The first chunk's state is
-        the generator's own (fresh tensors, as every program returns), so
-        other streams may run between its chunks.
+        its own (fresh tensors, as every program returns), so other
+        streams may run between its chunks.
         """
         self._check_speakers((speaker_id,))
         if seed is None:
@@ -652,13 +646,11 @@ class VitsEngine:
         overlap = max(0, overlap_frames)
         window = chunk + 2 * overlap
 
-        ids, lengths, sid, dp_noise, (gen,) = self._batch_inputs(
+        ids, lengths, sid, dp_noise, seeds = self._batch_inputs(
             [phoneme_ids], [speaker_id], seed)
         t_bucket = ids.shape[1]
         scales = self._scales(noise_scale, length_scale, noise_w)
-        prior_state = gen.get_state()
-        prior_pre = normal_rows(gen, window + FLOW_CONTEXT,
-                                hp.inter_channels)[None].to(self.dtype)
+        prior_pre = self._prior(seeds, None, window + FLOW_CONTEXT)
         audio, m_p, logs_p, w_ceil, x_mask, g, frames = self._run(
             ("first_chunk", t_bucket, chunk, overlap),
             partial(self._first_chunk, window=window,
@@ -675,8 +667,7 @@ class VitsEngine:
                 yield wav[chunk * up:n_frames * up]
             return
 
-        gen.set_state(prior_state)
-        prior = self._prior([gen], [n_frames], f_bucket)
+        prior = self._prior(seeds, [n_frames], f_bucket)
         z, _ = self._run(("latents", 1, t_bucket, f_bucket),
                          partial(self._latents, max_frames=f_bucket),
                          m_p, logs_p, w_ceil, x_mask, g, scales, prior)
@@ -746,12 +737,11 @@ class VitsEngine:
             spec, (0, 0, 0, f_bucket - n_frames)).to(self.dtype)
         if seed is None:
             seed = int(np.random.randint(0, 2 ** 31 - 1))
-        noise = self._prior([torch.Generator().manual_seed(seed)],
-                            [n_frames], f_bucket)
+        prior = self._prior(range(seed, seed + 1), [n_frames], f_bucket)
         out, = self._fetch(self._run(
             ("vc", 1, f_bucket), partial(self._vc, pcm16=self.fetch_pcm16),
             spec, torch.tensor([n_frames], dtype=torch.int32),
-            torch.tensor([sid_src]), torch.tensor([sid_tgt]), noise))
+            torch.tensor([sid_src]), torch.tensor([sid_tgt]), prior))
         return _audio_np(out)[0, :n_frames * hop]
 
     def warmup(self, batch_sizes: Sequence[int] = (1,),

@@ -46,12 +46,14 @@ from typing import Callable, Dict, Optional, Sequence
 import numpy as np
 import torch
 
-# the kernels whose launches the summary counts, by name: A, B and C in
-# float32 and bfloat16 (synthesis), D (the training steps)
+# the kernels whose launches the summary counts, by name: A, B, C and the
+# engine's noise draws in float32 and bfloat16 (synthesis), D (the
+# training steps)
 KERNEL_MODULES = {"A": "phoonnx_tpu_torch.models.vits.fused_encoder",
                   "B": "phoonnx_tpu_torch.models.vits.fused_flow",
                   "C": "phoonnx_tpu_torch.models.vits.fused_stage",
-                  "D": "phoonnx_tpu_torch.ops.mas"}
+                  "D": "phoonnx_tpu_torch.ops.mas",
+                  "noise": "phoonnx_tpu_torch.ops.noise"}
 
 
 def kernel_keys(dtype: torch.dtype = torch.float32) -> Dict[str, str]:
@@ -195,6 +197,7 @@ def dtype_check(model_path: Path, utterances, dev, seed: int = 0) -> dict:
     float32 over the valid positions."""
     from phoonnx_tpu_torch import SynthesisConfig, TTSVoice
     from phoonnx_tpu_torch.models.vits import model as vits_model
+    from phoonnx_tpu_torch.ops import noise
 
     voices = {dtype: TTSVoice.load(str(model_path), device=str(dev),
                                    dtype=dtype)
@@ -211,15 +214,15 @@ def dtype_check(model_path: Path, utterances, dev, seed: int = 0) -> dict:
             row[f"frames_{dtype}"] = len(voice.phoneme_ids_to_audio(
                 ids, SynthesisConfig(seed=seed))) // hop
             # the engine's duration noise for a request of one at seed
-            noise = torch.randn((1, len(ids), 2),
-                                generator=torch.Generator().manual_seed(seed))
+            dp_noise = noise.normal(seed, 1, len(ids), 2, noise.DURATION,
+                                    engine.device, None, engine.dtype)
             with torch.inference_mode():
                 logw[dtype] = vits_model.infer_log_durations(
                     engine.params, engine.hp,
                     torch.as_tensor([ids], device=engine.device),
                     torch.as_tensor([len(ids)], dtype=torch.int32,
                                     device=engine.device),
-                    noise_w, dp_noise=noise.to(engine.dtype)).cpu()
+                    noise_w, dp_noise=dp_noise).cpu()
         diff = (logw["bfloat16"] - logw["float32"]).flatten()
         row["max_log_duration_err"] = float(diff.abs().max())
         row["mean_log_duration_err"] = float(diff.abs().mean())

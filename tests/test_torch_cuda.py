@@ -525,9 +525,13 @@ def engine(device):
 
 
 def _host_inputs(engine, lengths, scales=(0.667, 1.0, 0.8), seed=0):
+    """Phase 1's inputs as the engine makes them: ids, lengths, sid and
+    scales on the host, the duration noise drawn on the card (the lanes'
+    seeds are left out)."""
     ids = [[4 + (7 * i + j) % 20 for j in range(n)]
            for i, n in enumerate(lengths)]
     tokens, lens, sid, dp_noise, _ = engine._batch_inputs(ids, None, seed)
+    assert dp_noise.is_cuda
     return tokens, lens, sid, engine._scales(*scales), dp_noise
 
 
@@ -711,7 +715,9 @@ def test_voice_conversion_graph_equals_eager(device):
                      hp, frame_buckets=(128,))
     # on the card's spectrum, as voice_conversion computes it
     spec = torch.rand(1, 128, hp.spec_channels).to(device)
-    noise = torch.randn(1, 128, 192)
+    # the noise as voice_conversion draws it, on the card: the later
+    # call replays this graph with its own draw
+    noise = eng._prior(range(0, 1), [100], 128)
     err = _replay_vs_eager(eng, ("vc", 1, 128), partial(eng._vc), spec,
                            torch.tensor([100], dtype=torch.int32),
                            torch.tensor([0]), torch.tensor([3]), noise)
@@ -722,6 +728,158 @@ def test_voice_conversion_graph_equals_eager(device):
     assert np.isfinite(out).all() and len(out) % 256 == 0
     assert fused_encoder.launches == before[0]
     assert fused_flow.launches > before[1]
+
+
+# ---------------------------------------------------------------------------
+# the noise kernel (csrc/noise.cu, ops/noise.py)
+# ---------------------------------------------------------------------------
+
+# the kernel's normals against the plain version's, both float32: the
+# card's logf and sincosf and the host's log, cos and sin differ by an ulp
+# or two, times a radius of at most 5.77
+NOISE_TOL = 2e-6
+# a large seed, past 2**32: the key's high word matters
+NOISE_SEED = 3_000_000_081 + 2 ** 32
+
+# the toolkit's Philox4x32-10 on the same counters and keys
+CURAND_PROBE = r"""
+#include <curand_philox4x32_x.h>
+
+__global__ void probe_kernel(const uint4* ctr, const uint2* key, uint4* out,
+                             int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) out[i] = curand_Philox4x32_10(ctr[i], key[i]);
+}
+
+extern "C" int curand_words(const void* ctr, const void* key, void* out,
+                            int n) {
+  probe_kernel<<<(n + 255) / 256, 256>>>(static_cast<const uint4*>(ctr),
+                                         static_cast<const uint2*>(key),
+                                         static_cast<uint4*>(out), n);
+  cudaError_t err = cudaGetLastError();
+  if (err == cudaSuccess) err = cudaDeviceSynchronize();
+  return static_cast<int>(err);
+}
+"""
+
+
+def _words(n: int, seed: int):
+    """(counters [n, 4], keys [n, 2]) of random 32-bit words in int64, the
+    first rows at the extremes 0 and 0xffffffff."""
+    rng = np.random.default_rng(seed)
+    w = rng.integers(0, 2 ** 32, size=(n, 6), dtype=np.uint64).astype(
+        np.int64)
+    top = 0xFFFFFFFF
+    w[:4] = [[0] * 6, [top] * 6, [0] * 4 + [top] * 2, [top] * 4 + [0] * 2]
+    t = torch.from_numpy(w)
+    return t[:, :4].contiguous(), t[:, 4:].contiguous()
+
+
+def _u32_bits(words):
+    """int64 words below 2**32 as int32 bit patterns."""
+    return torch.where(words >= 2 ** 31, words - 2 ** 32, words).to(
+        torch.int32)
+
+
+def test_noise_philox_words_match_plain_and_curand(device, tmp_path):
+    """The plain version's Philox words, the extreme words among the
+    counters and keys, equal bit for bit the toolkit's
+    ``curand_Philox4x32_10``, which the kernel calls, for the same counter
+    and key."""
+    import subprocess
+
+    from phoonnx_tpu_torch import cuda as port_cuda
+    from phoonnx_tpu_torch.ops import noise
+
+    ctr, key = _words(4096, 1)
+    src = tmp_path / "probe.cu"
+    src.write_text(CURAND_PROBE)
+    lib = tmp_path / "libprobe.so"
+    built = subprocess.run([port_cuda._nvcc(), *port_cuda.NVCC_FLAGS, "-o",
+                            str(lib), str(src)], capture_output=True,
+                           text=True)
+    assert built.returncode == 0, built.stdout + built.stderr
+    probe = ctypes.CDLL(str(lib)).curand_words
+    probe.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int]
+    ctr32 = _u32_bits(ctr).to(device)
+    key32 = _u32_bits(key).to(device)
+    want = torch.empty(len(ctr), 4, dtype=torch.int32, device=device)
+    torch.cuda.synchronize()
+    assert probe(ctr32.data_ptr(), key32.data_ptr(), want.data_ptr(),
+                 len(ctr)) == 0
+    assert torch.equal(noise.philox(ctr, key),
+                       want.cpu().to(torch.int64) & noise.MASK32)
+
+
+@pytest.mark.parametrize("lanes,rows,channels",
+                         [(16, 1024, 192), (4, 37, 2), (2, 11, 20),
+                          (1, 5, 3)])
+def test_noise_kernel_matches_plain(device, lanes, rows, channels):
+    """One launch a draw, within NOISE_TOL of the plain version for both
+    tags, rows past each lane's length exactly 0; the bfloat16 draw, counted
+    as a launch of the bfloat16 build, is the kernel's float32 draw
+    rounded. Shapes whose lane is not a multiple of 4 elements take the
+    element-by-element stores."""
+    from phoonnx_tpu_torch.ops import noise
+
+    lengths = torch.tensor([[0, rows, rows // 2, rows + 9][i % 4]
+                            for i in range(lanes)], dtype=torch.int32)
+    for tag in (noise.DURATION, noise.PRIOR):
+        for lens in (lengths, None):
+            before = noise.launches
+            got = noise.normal(NOISE_SEED, lanes, rows, channels, tag,
+                               device, lens)
+            assert noise.launches == before + 1
+            assert got.is_cuda and got.dtype == torch.float32
+            want = noise.normal_plain(NOISE_SEED, lanes, rows, channels,
+                                      tag, lens)
+            got = got.cpu()
+            assert (got - want).abs().max().item() <= NOISE_TOL
+            if lens is not None:
+                for b, n in enumerate(lens.tolist()):
+                    assert not got[b, min(n, rows):].any()
+            before = (noise.launches, noise.launches_bf16)
+            bf16 = noise.normal(NOISE_SEED, lanes, rows, channels, tag,
+                                device, lens, torch.bfloat16)
+            assert (noise.launches, noise.launches_bf16) == (
+                before[0], before[1] + 1)
+            assert torch.equal(bf16.cpu(), got.to(torch.bfloat16))
+
+
+def test_noise_kernel_prefix_and_lanes(device):
+    """On the card, bit for bit: a short draw is the start of a long one,
+    and lane i of a batch is the one-lane draw at seed + i."""
+    from phoonnx_tpu_torch.ops import noise
+
+    for channels, short, long in ((192, 1, 2), (192, 37, 4096),
+                                  (96, 5, 300), (20, 5, 11), (3, 5, 11)):
+        a = noise.normal(NOISE_SEED, 1, short, channels, noise.PRIOR, device)
+        b = noise.normal(NOISE_SEED, 1, long, channels, noise.PRIOR, device)
+        assert torch.equal(a, b[:, :short]), (channels, short, long)
+    batch = noise.normal(NOISE_SEED, 16, 100, 192, noise.PRIOR, device)
+    for i in range(16):
+        assert torch.equal(batch[i], noise.normal(
+            NOISE_SEED + i, 1, 100, 192, noise.PRIOR, device)[0]), i
+
+
+def test_two_phase_dispatch_draws_noise_twice(engine):
+    """A graph-replayed two-phase dispatch draws its noise on the card:
+    one launch for the duration noise, one for the prior, and the audio is
+    finite at noise scales 0."""
+    from phoonnx_tpu_torch.ops import noise
+
+    ids = [[5, 9, 11, 4, 7, 13, 6, 8, 10], [4, 6, 8, 2, 9, 12, 14, 5]]
+    # captures the keys
+    engine.synthesize_batch(ids, noise_scale=0.0, noise_w=0.0,
+                            seed=NOISE_SEED)
+    replays = sum(engine.graphs.replays.values())
+    for _ in range(2):
+        before = noise.launches
+        audio, frames = engine.synthesize_batch(ids, noise_scale=0.0,
+                                                noise_w=0.0, seed=NOISE_SEED)
+        assert noise.launches == before + 2
+        assert np.isfinite(audio).all() and min(frames) > 0
+    assert sum(engine.graphs.replays.values()) == replays + 4
 
 
 # ---------------------------------------------------------------------------
@@ -1100,7 +1258,8 @@ def _micro_batch(hp, device, n=4):
 
 def test_bf16_grad_accum_step_launches_mas(device):
     """A bf16 step of two micro-batches launches kernel D once a
-    micro-batch, on f32 scores, and none of A, B, C."""
+    micro-batch, on f32 scores, and none of A, B, C or the noise
+    kernel."""
     import chip_smoke
     from phoonnx_tpu_torch.train import step
 
@@ -1115,7 +1274,7 @@ def test_bf16_grad_accum_step_launches_mas(device):
         generator=torch.Generator(device=device).manual_seed(1))
     assert all(torch.isfinite(v) for v in metrics.values())
     assert chip_smoke.launch_counts(kernels) == {"A": 0, "B": 0, "C": 0,
-                                                 "D": 2}
+                                                 "noise": 0, "D": 2}
     assert all(t.dtype == torch.float32 for t in step.leaves(state.params_g))
 
 
@@ -1170,14 +1329,18 @@ def test_pipeline_on_the_card(device, tmp_path):
     """``chip_smoke.pipeline_phase`` at micro on a small corpus: every
     check of the chip run's pipeline phase (card vs CPU preprocessing,
     three epochs with their test audio and launch counts, the options'
-    steps, both exports served through A, B and C, the warm start)."""
+    steps, both exports served through A, B, C and the noise kernel, the
+    warm start). The test audio (``model.infer``, a torch generator's
+    noise) launches A, B and C and no noise kernel."""
     import chip_smoke
 
     paths, d = chip_smoke.pipeline_phase(
         torch, tmp_path, 5, device, quality="micro", n_utts=14,
         seconds=(0.4, 1.2), batch_size=2, tag="card pipeline")
-    assert d > 0 and all(n > 0 for counts in paths.values()
-                         for n in counts.values()), paths
+    assert d > 0 and all(counts[k] > 0 for counts in paths.values()
+                         for k in "ABC"), paths
+    assert all((counts["noise"] > 0) == (name != "pipeline test audio")
+               for name, counts in paths.items()), paths
 
 
 def _dp_rank(rank, world, port, out, backend, devices):

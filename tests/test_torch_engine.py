@@ -290,35 +290,6 @@ def test_warmup_runs(models):
     eng.warmup()  # the default grid: the first three text buckets
 
 
-@pytest.mark.parametrize("channels", [192, 96, 32])
-def test_cpu_generator_prefix_property(channels):
-    """The CPU generator fills normals in blocks of 16, so with a channel
-    count that is a multiple of 16 a draw of n rows is the first n rows of
-    a longer draw from the same state. Fused mode and streaming draw the
-    prior noise before the frame count is known and rely on it; a torch
-    release that breaks it fails here."""
-    for n, m in ((1, 2), (5, 300), (37, 38), (128, 4096)):
-        gen = torch.Generator().manual_seed(n)
-        torch.randn((7, 2), generator=gen)  # a duration draw first
-        state = gen.get_state()
-        short = torch.randn((n, channels), generator=gen)
-        gen.set_state(state)
-        long = torch.randn((m, channels), generator=gen)
-        assert torch.equal(short, long[:n]), (n, m)
-        gen.set_state(state)
-        assert torch.equal(port_engine.normal_rows(gen, n, channels), short)
-
-
-def test_normal_rows_prefix_at_any_width():
-    for channels in (3, 8, 20):
-        gen = torch.Generator().manual_seed(channels)
-        state = gen.get_state()
-        short = port_engine.normal_rows(gen, 5, channels)
-        gen.set_state(state)
-        assert torch.equal(short, port_engine.normal_rows(gen, 11,
-                                                          channels)[:5])
-
-
 def test_engine_options_refused_and_flags(models):
     _, _, eng = models
     params, hp = eng.params, eng.hp

@@ -20,9 +20,9 @@ from phoonnx_tpu.infer.engine import VitsEngine as JaxEngine
 from phoonnx_tpu.models.vits import model as jax_model
 from phoonnx_tpu_torch import TTSVoice
 from phoonnx_tpu_torch.infer import VitsEngine
-from phoonnx_tpu_torch.infer.engine import normal_rows
 from phoonnx_tpu_torch.models.vits import model as port_model
 from phoonnx_tpu_torch.models.vits.model import VitsHParams
+from phoonnx_tpu_torch.ops import noise
 from phoonnx_tpu_torch.ops.stft import spectrogram
 
 from tests.test_torch_cli import write_port_voice
@@ -104,11 +104,10 @@ def test_engine_voice_conversion_trims_and_checks(models):
     spec = spectrogram(torch.from_numpy(audio)[None], n_fft,
                        hp.total_upsample, n_fft)
     n = spec.shape[1]
-    noise = normal_rows(torch.Generator().manual_seed(4), n,
-                        hp.inter_channels)[None]
+    prior = noise.normal_plain(4, 1, n, hp.inter_channels, noise.PRIOR)
     want, _ = port_model.voice_conversion(
         eng.params, eng.hp, spec, torch.tensor([n], dtype=torch.int32),
-        torch.tensor([0]), torch.tensor([2]), noise=noise)
+        torch.tensor([0]), torch.tensor([2]), noise=prior)
     assert out.dtype == np.float32 and len(out) == n * hp.total_upsample
     np.testing.assert_allclose(out, want[0].numpy(), atol=1e-5, rtol=0)
     jax_out = JaxEngine(jp, hp, frame_buckets=(64, 128)).voice_conversion(
