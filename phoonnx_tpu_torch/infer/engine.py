@@ -236,6 +236,11 @@ class VitsEngine:
             vits_model.params_to_device(params, self.device), self.dtype))
         self.graphs = Graphs(self.device, self.matmul_precision) \
             if self.device.type == "cuda" else None
+        # the args of the decoding spans (engine.phase2, engine.fused): the
+        # decoder's family and its bands (1 but for a multi-band iSTFT)
+        self._decoder_args = {
+            "decoder": hp.decoder_type,
+            "bands": hp.istft_bands if hp.decoder_type == "istft" else 1}
 
     @property
     def max_frames(self) -> int:
@@ -522,7 +527,7 @@ class VitsEngine:
             f_bucket = self._fused_bucket(t_bucket)
             with observability.span("engine.prior"):
                 prior = self._prior(seeds, None, f_bucket)
-            with observability.span("engine.fused"):
+            with observability.span("engine.fused", **self._decoder_args):
                 out = self._run(
                     ("fused", batch, t_bucket, f_bucket),
                     partial(self._fused, max_frames=f_bucket,
@@ -548,7 +553,7 @@ class VitsEngine:
         f_bucket = self._frame_bucket_clamped(int(n_frames.max()))
         with observability.span("engine.prior"):
             prior = self._prior(seeds, frames, f_bucket)
-        with observability.span("engine.phase2"):
+        with observability.span("engine.phase2", **self._decoder_args):
             out = self._run(
                 ("phase2", batch, t_bucket, f_bucket),
                 partial(self._phase2, max_frames=f_bucket,

@@ -36,9 +36,11 @@ the group that served it.
 The spans, at the layer boundaries only (``PERF.md`` §3 names the metric
 each serves): ``batcher.queue`` (a request from ``submit`` to the start of
 its group, on the submitting thread's row), ``batcher.group``,
-``batcher.dispatch``, ``batcher.reassemble`` (``serve.py``);
-``engine.inputs``, ``engine.phase1``, ``engine.frames``, ``engine.prior``,
-``engine.phase2`` (``engine.fused`` in fused mode), ``engine.fetch``
+``batcher.dispatch`` (its ``lanes``, ``pad_lanes``, ``frames_real``,
+``frames_decoded`` and ``samples_decoded``), ``batcher.reassemble``
+(``serve.py``); ``engine.inputs``, ``engine.phase1``, ``engine.frames``,
+``engine.prior``, ``engine.phase2`` (``engine.fused`` in fused mode; both
+carry the ``decoder`` family and its ``bands``), ``engine.fetch``
 (``infer/engine.py``); ``graphs.capture`` (``infer/graphs.py``);
 ``train.step`` and its ``train.gen_forward``, ``train.gen_backward``,
 ``train.disc`` (its backward ``train.disc_backward``) and
@@ -131,8 +133,10 @@ class SynthesisStats:
 SPAN_BUFFER = 1 << 17
 
 # the record_function range that marks device_trace's opening: the
-# program's spans are placed on the trace by the monotonic clock read in it
+# program's spans are placed on the trace by the monotonic clock read in
+# it, in the shortest of ANCHORS such ranges in a row
 ANCHOR = "phoonnx.trace_anchor"
+ANCHORS = 4
 
 
 def _tracing() -> bool:
@@ -359,20 +363,26 @@ def session_spans(thread: Optional[str] = None
             for a, b, name, *_ in _RECORDER.spans(thread)]
 
 
-def _span_rows(path: str, anchor_ns: int) -> int:
+def _span_rows(path: str, anchors_ns: List[int]) -> int:
     """Write the session's spans into the Chrome trace at ``path``, a row
-    for each thread, placed by the end of the ``ANCHOR`` range, which
-    ``anchor_ns`` was read just before; the number of spans written. (The
-    range's start is a worse mark: a process's first range takes a
-    millisecond to enter after its start is taken.)"""
+    for each thread, placed by the end of the shortest ``ANCHOR`` range,
+    the clock read just before it in ``anchors_ns`` (one a range, in
+    order); the number of spans written. Of a range that ends long after
+    its read (a process's first range takes up to milliseconds to leave,
+    as to enter, and a thread may be preempted in it), the end is a worse
+    mark, as the start is of one that is entered slowly: the shortest of
+    the ranges misplaces the spans the least."""
     with open(path, encoding="utf-8") as f:
         trace = json.load(f)
     events = trace["traceEvents"]
-    mark = next((e for e in events
-                 if e.get("name") == ANCHOR and e.get("ph") == "X"), None)
+    marks = sorted((e for e in events
+                    if e.get("name") == ANCHOR and e.get("ph") == "X"),
+                   key=lambda e: e["ts"])
     spans = _RECORDER.spans()
-    if mark is None or not spans:
+    if len(marks) != len(anchors_ns) or not spans:
         return 0
+    mark, anchor_ns = min(zip(marks, anchors_ns),
+                          key=lambda pair: pair[0]["dur"])
     shift_us = mark["ts"] + mark["dur"] - anchor_ns / 1e3
     pid = mark["pid"]
     rows: Dict[str, int] = {}
@@ -409,8 +419,10 @@ def device_trace(log_dir: str = "phoonnx_tpu_torch_trace") -> Iterator[None]:
     os.makedirs(log_dir, exist_ok=True)
     with profile(activities=activities) as prof:
         _RECORDER.end_session()  # the block's spans start a session
-        with record_function(ANCHOR):
-            anchor_ns = time.monotonic_ns()
+        anchors_ns = []
+        for _ in range(ANCHORS):
+            with record_function(ANCHOR):
+                anchors_ns.append(time.monotonic_ns())
         try:
             yield
         finally:
@@ -418,7 +430,7 @@ def device_trace(log_dir: str = "phoonnx_tpu_torch_trace") -> Iterator[None]:
                 torch.cuda.synchronize()
     path = os.path.join(log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json")
     prof.export_chrome_trace(path)
-    rows = _span_rows(path, anchor_ns)
+    rows = _span_rows(path, anchors_ns)
     LOG.info("device trace written to %s (%d program spans)", path, rows)
 
 

@@ -106,11 +106,14 @@ class _Submission:
 
 # DynamicBatcher.stats: submissions, groups (one _synthesize_group each),
 # dispatches (engine calls; a group of more lanes than max_batch makes
-# several), their real and pad lanes, the frames of the real lanes and
-# the frames decoded (lanes x the frame bucket, pad lanes included), and
-# the graphs its engine has captured (``Graphs.captures``)
+# several), their real and pad lanes, the frames of the real lanes, the
+# frames decoded (lanes x the frame bucket, pad lanes included) and the
+# output samples decoded (the dispatches' audio, pad included), and the
+# graphs its engine has captured (``Graphs.captures``). ``batches``, the
+# JAX package's name for ``groups``, is reported beside it.
 COUNTERS = ("requests", "groups", "dispatches", "lanes", "pad_lanes",
-            "frames_real", "frames_decoded", "graph_captures")
+            "frames_real", "frames_decoded", "samples_decoded",
+            "graph_captures")
 
 
 class DynamicBatcher:
@@ -136,11 +139,13 @@ class DynamicBatcher:
 
     @property
     def stats(self) -> Dict[str, Any]:
-        """A copy of the counters (``COUNTERS``, ``max_batch_seen``)."""
+        """A copy of the counters (``COUNTERS``, ``max_batch_seen``,
+        ``batches``)."""
         with self._stats_lock:
             stats = dict(self._stats)
         graphs = getattr(self.engine, "graphs", None)
         stats["graph_captures"] = graphs.captures if graphs else 0
+        stats["batches"] = stats["groups"]
         return stats
 
     def start(self) -> None:
@@ -318,11 +323,15 @@ class DynamicBatcher:
                         # a sequential engine decodes each row at its length
                         decoded = (target * (audio.shape[1] // upsample)
                                    if pads else real)
+                        samples = (audio.shape[0] * audio.shape[1] if pads
+                                   else real * upsample)
                         dispatch.set(lanes=n_chunk, pad_lanes=pad_rows,
-                                     frames_real=real, frames_decoded=decoded)
+                                     frames_real=real, frames_decoded=decoded,
+                                     samples_decoded=samples)
                     chunks.append((start, n_chunk, audio, frame_lengths))
                     counts.update(lanes=n_chunk, pad_lanes=pad_rows,
-                                  frames_real=real, frames_decoded=decoded)
+                                  frames_real=real, frames_decoded=decoded,
+                                  samples_decoded=samples)
                 with self._stats_lock:
                     self._stats["groups"] += 1
                     self._stats["dispatches"] += len(chunks)
@@ -406,6 +415,7 @@ class BatcherPool:
                 merged[key] += s[key]
             merged["max_batch_seen"] = max(merged["max_batch_seen"],
                                            s["max_batch_seen"])
+        merged["batches"] = merged["groups"]
         merged["devices"] = len(self.batchers)
         merged["per_device"] = per
         return merged

@@ -413,6 +413,70 @@ def test_istft_decode_makes_no_host_sync(device, quality):
     torch.testing.assert_close(got, want)
 
 
+# the published MB-iSTFT-VITS decoder (arXiv:2210.15975,
+# configs/ljs_mb_istft_vits.json): resblock "1" stages at 4x and 16x from
+# 512 channels, then the 4-band iSTFT head of the medium-mb-istft preset
+MB_ISTFT = dict(resblock="1", resblock_kernel_sizes=(3, 7, 11),
+                resblock_dilation_sizes=((1, 3, 5),) * 3,
+                upsample_rates=(4, 4), upsample_initial_channel=512,
+                upsample_kernel_sizes=(16, 16))
+
+
+@pytest.mark.parametrize("stage,frames", [(0, 4), (1, 16)])
+def test_mb_istft_published_stage_kernel(device, stage, frames):
+    """Kernel C's no-tail caller at the published decoder's stages (256
+    channels at 4x, 128 at 16x, kernels up to 11 at dilation 5) for 57
+    frames, with ragged valid lengths."""
+    spec = _stage_spec(device, "medium-mb-istft", stage, **MB_ISTFT)
+    assert "postW" not in spec
+    c = 256 >> stage
+    assert spec["W"].shape[1] == c and spec["W"].shape[0] == 126
+    t = 57 * frames
+    x = torch.randn(3, t, c, device=device) * 0.5
+    valid = torch.tensor([t, 31 * frames - 3, 1], dtype=torch.int32,
+                         device=device)
+    got = _hold_stage(spec, x, valid)
+    assert (got[1, 31 * frames - 3:] == 0).all() and (got[2, 1:] == 0).all()
+
+
+def test_mb_istft_16_lane_graphs_equal_eager(device):
+    """The published decoder's two-phase programs at 16 lanes of ragged
+    lengths: a replay of each graph equals an eager call of its program,
+    phase 1 bit for bit, phase 2 to float32 rounding (``GRAPH_TOL``), as
+    two eager calls of phase 2 agree: cuDNN's transposed convs (the
+    upsampling, the overlap-add, the PQMF bank) need not repeat bit for
+    bit."""
+    from functools import partial
+
+    from phoonnx_tpu_torch.infer import VitsEngine
+
+    hp = model.VitsHParams.preset("medium-mb-istft", **MB_ISTFT)
+    assert hp.total_upsample == 256
+    engine = VitsEngine(
+        model.random_params(hp, torch.Generator().manual_seed(8)), hp,
+        text_buckets=(64,), frame_buckets=(512,))
+    lengths = [60, 3, 41, 17, 64, 9, 33, 50, 28, 5, 44, 12, 58, 21, 37, 1]
+    tokens, lens, sid, scales, dp_noise = _host_inputs(engine, lengths)
+    assert _replay_vs_eager(engine, ("mb_phase1", 16, 64), engine._phase1,
+                            tokens, lens, sid, scales, dp_noise) == 0.0
+    m_p, logs_p, w_ceil, x_mask, g, frames = engine._phase1(
+        *[a.to(engine.device) for a in (tokens, lens, sid, scales,
+                                        dp_noise)])
+    prior = torch.randn(16, 512, hp.inter_channels)
+    phase2 = partial(engine._phase2, max_frames=512)
+    err = _replay_vs_eager(engine, ("mb_phase2", 16, 64, 512), phase2, m_p,
+                           logs_p, w_ceil, x_mask, g, scales, prior)
+    args = (m_p, logs_p, w_ceil, x_mask, g, scales, prior.to(device))
+    first, second = phase2(*args), phase2(*args)
+    torch.cuda.synchronize()
+    print(f"phase 2 at 16 lanes: replay - eager {err!r}, eager - eager "
+          f"{_agree(first, second)!r}")
+    assert err <= GRAPH_TOL
+    audio, y_lengths = first
+    assert audio.shape == (16, 512 * 256)
+    assert bool(torch.isfinite(audio).all())
+
+
 def test_tap_tile_matches_the_host_rule(device):
     """tapconv.cuh's tile choice is tiling.tap_tile: every preset conv
     and odd shapes, at this card's SM count and at 132."""

@@ -181,6 +181,28 @@ def test_device_trace_writes_the_spans_beside_the_profilers(recorder,
     assert abs(span["ts"] + span["dur"] - rng["ts"] - rng["dur"]) < 1000
 
 
+def test_spans_are_placed_by_the_shortest_anchor(recorder, tmp_path):
+    """Of the anchor ranges, the one that left soonest after its clock
+    read places the spans: a first range that lingered 1.5 ms past its
+    read would move every span by as much."""
+    with tracing():
+        with observability.span("main.span"):
+            pass
+    (start, *_), = recorder.spans()
+    events = [{"ph": "X", "name": observability.ANCHOR, "pid": 1, "tid": 1,
+               "ts": 1000.0, "dur": 2000.0},
+              {"ph": "X", "name": observability.ANCHOR, "pid": 1, "tid": 1,
+               "ts": 3100.0, "dur": 10.0}]
+    path = tmp_path / "trace.json"
+    path.write_text(json.dumps({"traceEvents": events}))
+    # the reads: 1.5 ms before the first range's end, 5 µs before the
+    # second's
+    assert observability._span_rows(str(path), [1_500_000, 3_105_000]) == 1
+    ours, = [e for e in json.loads(path.read_text())["traceEvents"]
+             if e.get("cat") == "phoonnx"]
+    assert ours["ts"] == pytest.approx(start / 1e3 + 5.0)
+
+
 @pytest.fixture(scope="module")
 def engine():
     hp = VitsHParams.preset("micro", n_vocab=20)
@@ -201,7 +223,8 @@ def test_batcher_spans_match_its_counters(recorder, engine):
             # wake: stopping it inside the trace keeps them
             batcher.stop()
     stats = batcher.stats
-    assert set(COUNTERS) | {"max_batch_seen"} == set(stats)
+    assert set(COUNTERS) | {"max_batch_seen", "batches"} == set(stats)
+    assert stats["batches"] == stats["groups"]
     assert stats["requests"] == 3 and stats["lanes"] == 24
     assert stats["dispatches"] >= 6 and stats["dispatches"] >= \
         stats["groups"]
@@ -215,11 +238,19 @@ def test_batcher_spans_match_its_counters(recorder, engine):
     assert dispatch["args"]["frames_real"] == real == stats["frames_real"]
     assert real <= dispatch["args"]["frames_decoded"] == \
         stats["frames_decoded"]
+    # a dispatch's audio is its lanes at the frame bucket, pad included
+    assert dispatch["args"]["samples_decoded"] == stats["samples_decoded"] \
+        == up * stats["frames_decoded"]
     for key in ("lanes", "pad_lanes"):
         assert dispatch["args"][key] == stats[key]
     for name in ("engine.inputs", "engine.phase1", "engine.frames",
                  "engine.prior", "engine.phase2", "engine.fetch"):
         assert got[name]["count"] == stats["dispatches"], name
+    # the decoding span names the decoder (its bands summed over the spans)
+    assert got["engine.phase2"]["args"] == {"bands": stats["dispatches"]}
+    decoders = {args["decoder"] for _, _, name, _, _, args in
+                observability._RECORDER.spans() if name == "engine.phase2"}
+    assert decoders == {"hifigan"}
     queue = observability.session()["spans"]["batcher.queue"]
     assert queue["count"] == 3 and "batcher.queue" not in got
 

@@ -186,7 +186,8 @@ def test_stats_route_counts_groups_and_dispatches(server):
     _, data = _request(server, "GET", "/stats")
     after = json.loads(data)
     assert set(COUNTERS) | {"max_batch_seen"} <= set(after)
-    assert "batches" not in after
+    # the JAX package's name for the groups, beside it
+    assert after["batches"] == after["groups"]
     grew = {k: after[k] - before[k] for k in COUNTERS}
     assert grew["requests"] == 1 and grew["groups"] == 1
     assert grew["dispatches"] == 2 and grew["lanes"] == 10
@@ -194,6 +195,7 @@ def test_stats_route_counts_groups_and_dispatches(server):
     up = server.batcher.engine.hp.total_upsample
     assert grew["frames_real"] == len(_pcm(wav)) // up
     assert grew["frames_real"] <= grew["frames_decoded"]
+    assert grew["samples_decoded"] == up * grew["frames_decoded"]
     assert after["dispatches"] >= after["groups"]
 
 

@@ -156,18 +156,19 @@ def test_batchers_make_the_same_calls():
     hp = jax_model.VitsHParams.preset("micro")
     jax_calls, jax_stats = _dispatch(JaxBatcher, hp)
     port_calls, port_stats = _dispatch(PortBatcher, hp)
-    # the port's stats call JAX's "batches" what they count, "groups",
-    # and count the dispatches and their lanes and frames besides (the
-    # recording engine answers one frame a lane)
+    # the port's stats report JAX's "batches" and, beside it, the same
+    # count as "groups", and count the dispatches and their lanes, frames
+    # and samples besides (the recording engine answers one frame a lane)
     assert port_stats["groups"] == jax_stats["batches"]
-    assert {k: port_stats[k] for k in jax_stats if k != "batches"} == {
-        k: v for k, v in jax_stats.items() if k != "batches"}
+    assert {k: port_stats[k] for k in jax_stats} == jax_stats
     assert len(port_calls) == len(jax_calls) == 6
     assert port_stats["dispatches"] == len(port_calls)
     assert port_stats["frames_real"] == port_stats["lanes"]
     assert port_stats["frames_decoded"] == sum(len(c["ids"])
                                                for c in port_calls) == \
         port_stats["lanes"] + port_stats["pad_lanes"]
+    assert port_stats["samples_decoded"] == \
+        port_stats["frames_decoded"] * hp.total_upsample
 
     seeded = [i for i, c in enumerate(jax_calls) if c["seed"] is not None]
     assert seeded == [0]
